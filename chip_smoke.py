@@ -7,19 +7,25 @@ check:
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch, CUDA,
    ``nvcc``; TF32 is switched off; the CUDA kernels are built from the
-   checkout's sources.
+   checkout's sources, and ``ptxas -v`` (registers, spills) and the count of
+   tensor-core (``HMMA``) instructions in each kernel's SASS are logged.
 2. Kernels: ``fused_tenant_gemm`` — the port's main kernel path — runs the
-   three ``benchmarks/kernel_bench.py`` mixes (block 128) and two full-width
-   rounds of the paper's heavy workload (layer 0 of each of the 8 tenants,
-   and each tenant's largest GEMM, partition blocks autotuned), in float32
-   and bfloat16, in dense and in compact mode.  The launch counters are
-   zeroed just before that run and read just after it.  Then each kernel is
-   held against its plain version on the card: max relative error < 1e-4 on
-   random operands, bit-exact dense == compact == plain on integer-valued
-   operands, and the compact run list covers exactly the live tiles.  The
-   full-width rounds are timed with CUDA events, kernel and plain version in
-   turns, beside ``sequential_tenant_gemm`` (one ``torch.matmul`` per tenant)
-   as the library yardstick.
+   three ``benchmarks/kernel_bench.py`` mixes (block 128), a mix of odd
+   depths and widths (every operand row off 16-byte alignment) and two
+   full-width rounds of the paper's heavy workload (layer 0 of each of the 8
+   tenants, and each tenant's largest GEMM, partition blocks autotuned), in
+   float32 and bfloat16, in dense and in compact mode.  The launch counters
+   are zeroed just before that run and read just after it.  Then each kernel
+   is held against its plain version on the card: max relative error < 1e-4
+   on random operands, and bit-exact dense == compact == plain on
+   integer-valued operands through the stacked API, whose output is
+   allocated over garbage so that an unwritten byte shows.  The full-width
+   rounds are timed with CUDA events, in turns: ``partitioned_matmul`` on
+   the padded operands beside its plain version, ``fused_tenant_gemm`` on
+   the tenants' own tensors (the main path), and ``sequential_tenant_gemm``
+   (one ``torch.matmul`` per tenant) as the library yardstick; each kernel's
+   device time comes from ``torch.profiler`` and each entry point's host
+   enqueue time from the host clock.
 3. Serving: a ``MultiTenantEngine`` over the card as one column serves two
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
@@ -33,6 +39,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -46,11 +53,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 MAX_REL_ERR = 1e-4  # benchmarks/kernel_bench.py's bound
 BF16_TOL = 3e-2  # bf16 decode logits, CPU vs card (tests/test_torch_models.py)
-TIMING_TURNS = 5  # turns of (plain, dense, compact, library) and back
+TIMING_TURNS = 5  # turns of (dense, compact, fused, library) and back
 CALLS_PER_SAMPLE = 3
 FULL_WIDTH = ("heavy_l0", "heavy_max")
 DTYPES = ("float32", "bfloat16")
 MODES = ("dense", "compact")
+ENQUEUE_CALLS = 50  # calls timed on the host clock without a synchronise
 KERNEL_FILE = "src/repro_torch/kernels/csrc/partitioned_matmul.cu"
 TPU_KERNEL = {
     "dense": "src/repro/kernels/partitioned_matmul.py:261",
@@ -100,6 +108,67 @@ def environment(torch, build) -> str:
     return card
 
 
+def kernel_name(symbol: str) -> str | None:
+    """``dense/bfloat16`` etc. for a mangled kernel symbol."""
+    for mode in MODES:
+        if f"{mode}_kernel" in symbol:
+            dt = "bfloat16" if "bfloat16" in symbol else "float32"
+            return f"{mode}/{dt}"
+    return None
+
+
+def build_details(build) -> dict:
+    """Per kernel instantiation: registers, spills and static shared memory
+    from ``ptxas -v``, dynamic shared memory from the library, and the
+    tensor-core instructions in its SASS (``cuobjdump``, where the toolkit
+    has it)."""
+    details, name = {}, None
+    for line in build.ptxas_log().splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            if name:
+                details.setdefault(name, {})
+            continue
+        if not name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            details[name]["spill_stores"] = int(m.group(1))
+            details[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            details[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            details[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    lay = build.layout()
+    for name, d in details.items():
+        d["dynamic_smem"] = lay["smem_" + name.split("/")[1]]
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    if cuobjdump.exists():
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(build.library_path())],
+            capture_output=True,
+            text=True,
+            check=True,
+        ).stdout
+        name = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = kernel_name(m.group(1))
+                if name:
+                    details.setdefault(name, {}).setdefault("hmma", 0)
+            elif name and re.search(r"\b[HG]MMA", line):
+                details[name]["hmma"] += 1
+    log(f"build details: {json.dumps(details, sort_keys=True)}")
+    for mode in MODES:
+        d = details.get(f"{mode}/bfloat16", {})
+        check(d.get("hmma", 1) > 0, f"{mode}/bfloat16 has no tensor-core instruction")
+        check("registers" in d, f"ptxas reported nothing for {mode}/bfloat16")
+    return details
+
+
 # ---------------------------------------------------------------------------
 # 2. kernels
 # ---------------------------------------------------------------------------
@@ -116,10 +185,14 @@ def kernel_mixes(workloads) -> dict:
     first = [gemm(g.layers[0]) for g in heavy]
     largest = [max((gemm(x) for x in g.layers), key=np.prod) for g in heavy]
     capped = [tuple(min(v, 512) for v in s) for s in first]
+    # odd depths and widths: no operand row is 16-byte aligned, and in
+    # bfloat16 every x row of an odd depth starts on a 2-byte boundary
+    unaligned = [(37, 363, 101), (129, 147, 65), (1, 33, 7), (300, 153, 99)]
     return {
         "uniform": ([(256, 256, 256)] * 4, 128),
         "ragged": (capped[:4], 128),
         "ragged_heavy": (capped, 128),
+        "unaligned": (unaligned, 32),
         "heavy_l0": (first, None),
         "heavy_max": (largest, None),
     }
@@ -138,12 +211,15 @@ def operands(torch, shapes, dtype: str, seed: int, integer: bool = False):
     return [draw((t, k)) for t, k, _ in shapes], [draw((k, n)) for _, k, n in shapes]
 
 
-def bound(shapes, dtype: str, T: int, N: int) -> tuple[float, str]:
-    """Least time (ms) the card needs for the fused call: the live operand
-    bytes read once and the (T, N) f32 output written once over the memory
-    rate, or the live FLOPs over the dtype's peak, whichever is larger."""
+def bound(shapes, dtype: str, T: int = 0, N: int = 0) -> tuple[float, str]:
+    """Least time (ms) the card needs for a fused call: the live operand
+    bytes read once and the output written once over the memory rate, or the
+    live FLOPs over the dtype's peak, whichever is larger.  The output is the
+    stacked API's (T, N) f32 when ``T`` and ``N`` are given, else each
+    tenant's own (T_i, N_i) f32 (``fused_tenant_gemm`` on the card)."""
     item = 4 if dtype == "float32" else 2
-    nbytes = sum((t * k + k * n) * item for t, k, n in shapes) + T * N * 4
+    nbytes = sum((t * k + k * n) * item for t, k, n in shapes)
+    nbytes += T * N * 4 if T else sum(t * n * 4 for t, _, n in shapes)
     flops = sum(2 * t * k * n for t, k, n in shapes)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     if by_bytes >= by_ops:
@@ -172,6 +248,19 @@ def time_in_turns(torch, fns: dict) -> dict:
     return {name: statistics.median(v) for name, v in samples.items()}
 
 
+def enqueue_us(torch, fn) -> float:
+    """Host microseconds per call to enqueue ``fn``: ``ENQUEUE_CALLS``
+    calls on the host clock with no synchronise between them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENQUEUE_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / ENQUEUE_CALLS
+    torch.cuda.synchronize()
+    return us
+
+
 def device_profile(torch, fn, calls: int) -> tuple[float, float, list]:
     """``calls`` runs of ``fn`` under ``torch.profiler``: host wall ms per
     call, device ms per call (kernels, copies and fills, summed from the
@@ -197,9 +286,7 @@ def device_profile(torch, fn, calls: int) -> tuple[float, float, list]:
     return wall_ms, sum(ms for _, ms in rows), rows[:6]
 
 
-def kernel_phase(torch, K) -> list[dict]:
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.partitioned_matmul import _live_extents
+def kernel_phase(torch, K, details: dict) -> list[dict]:
     from repro_torch.sim import workloads
 
     mixes = kernel_mixes(workloads)
@@ -233,10 +320,9 @@ def kernel_phase(torch, K) -> list[dict]:
     check(all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}")
 
     # -- each kernel against its plain version ------------------------------
-    tile_rows, tile_cols, _, smem = _build.geometry()
-    log(f"CTA tile {tile_rows}x{tile_cols}, {smem} B shared memory")
     errs = {m: {"abs": 0.0, "rel": 0.0} for m in MODES}
     rounds = {m: [] for m in MODES}
+    fused = {m: [] for m in MODES}
     for (mix, dt), (xs, ws) in inputs.items():
         shapes, _ = mixes[mix]
         bt, bk, bn = blocks[mix, dt]
@@ -248,9 +334,10 @@ def kernel_phase(torch, K) -> list[dict]:
         vt_d = torch.from_numpy(vt).cuda()
         plain = K.partitioned_matmul_ref(xs_pad, w_pad, owner_d, vt_d, bn)
         for mode in MODES:
-            outs, stats = results[mix, dt, mode]
+            outs, _ = results[mix, dt, mode]
             col = 0
             for (t, _, n), out in zip(shapes, outs):
+                check(out.is_contiguous() and out.shape == (t, n), "output layout")
                 ref = plain[:t, col : col + n]
                 abs_err = (out - ref).abs().max().item()
                 rel_err = abs_err / (ref.abs().max().item() + 1e-9)
@@ -258,56 +345,105 @@ def kernel_phase(torch, K) -> list[dict]:
                 errs[mode]["abs"] = max(errs[mode]["abs"], abs_err)
                 errs[mode]["rel"] = max(errs[mode]["rel"], rel_err)
                 col += -(-n // bn) * bn
-            if mode == "compact":
-                tile = (tile_rows, tile_cols)
-                check_run_list(K, _live_extents, stats, padded, kw, tile)
         del plain
 
+        # integer operands: exact whatever the summation order.  The stacked
+        # outputs are allocated where garbage was, so a byte that no CTA
+        # writes cannot read as the right value
         ixs, iws = operands(torch, shapes, dt, seed=1000, integer=True)
         ipad = K.pad_operands(ixs, iws, **kw)
-        dense = K.partitioned_matmul(*ipad, grid_mode="dense", **kw)
-        compact = K.partitioned_matmul(*ipad, grid_mode="compact", **kw)
         iplain = K.partitioned_matmul_ref(ipad[0], ipad[1], owner_d, vt_d, bn)
-        check(torch.equal(dense, compact), f"{mix} {dt}: dense != compact")
-        check(torch.equal(dense, iplain), f"{mix} {dt}: kernel != plain")
-        del dense, compact, iplain
+        got = {}
+        for mode in MODES:
+            junk = torch.full((T, N), float("nan"), device="cuda")
+            del junk
+            got[mode] = K.partitioned_matmul(*ipad, grid_mode=mode, **kw)
+        same = torch.equal(got["dense"], got["compact"])
+        check(same, f"{mix} {dt}: dense != compact")
+        check(torch.equal(got["dense"], iplain), f"{mix} {dt}: kernel != plain")
+        for mode in MODES:
+            outs = K.fused_tenant_gemm(ixs, iws, grid_mode=mode, **kw)
+            for x, w, out in zip(ixs, iws, outs):
+                exact = torch.equal(out, x.float() @ w.float())
+                check(exact, f"{mix} {dt} {mode}: fused")
+        del got, iplain, ipad
 
         if mix in FULL_WIDTH:
+            # the plain version (11-55 ms a call, at full power) is timed
+            # on its own, so that the card's clocks after it do not weigh
+            # on whichever call follows it in the turns
             ms = time_in_turns(
                 torch,
                 {
                     "plain": lambda: K.partitioned_matmul_ref(
                         xs_pad, w_pad, owner_d, vt_d, bn
-                    ),
+                    )
+                },
+            )
+            ms |= time_in_turns(
+                torch,
+                {
                     "dense": lambda: K.partitioned_matmul(*padded, **kw),
                     "compact": lambda: K.partitioned_matmul(
                         *padded, grid_mode="compact", **kw
+                    ),
+                    "fused_dense": lambda: K.fused_tenant_gemm(
+                        xs, ws, grid_mode="dense"
+                    ),
+                    "fused_compact": lambda: K.fused_tenant_gemm(
+                        xs, ws, grid_mode="compact"
                     ),
                     "library": lambda: K.sequential_tenant_gemm(xs, ws),
                 },
             )
             bound_ms, bound_by = bound(shapes, dt, T, N)
+            fused_bound_ms, fused_bound_by = bound(shapes, dt)
             for mode in MODES:
-                _, dev_ms, top = device_profile(
-                    torch,
-                    lambda: K.partitioned_matmul(*padded, grid_mode=mode, **kw),
-                    CALLS_PER_SAMPLE,
-                )
-                kernel_ms = sum(t for name, t in top if f"{mode}_kernel" in name)
+                calls = {
+                    "partitioned_matmul": lambda: K.partitioned_matmul(
+                        *padded, grid_mode=mode, **kw
+                    ),
+                    "fused_tenant_gemm": lambda: K.fused_tenant_gemm(
+                        xs, ws, grid_mode=mode
+                    ),
+                }
+                host = {name: enqueue_us(torch, fn) for name, fn in calls.items()}
+                prof = {
+                    name: device_profile(torch, fn, CALLS_PER_SAMPLE)
+                    for name, fn in calls.items()
+                }
+                kernel_ms = {
+                    name: sum(t for n, t in top if f"{mode}_kernel" in n)
+                    for name, (_, _, top) in prof.items()
+                }
                 rounds[mode].append(
                     {
                         "round": f"{mix}/{dt}",
                         "blocks": [bt, bk, bn],
                         "ms": ms[mode],
-                        "kernel_ms": kernel_ms,
-                        "device_ms": dev_ms,
+                        "kernel_ms": kernel_ms["partitioned_matmul"],
+                        "device_ms": prof["partitioned_matmul"][1],
+                        "host_us": host["partitioned_matmul"],
                         "plain_ms": ms["plain"],
                         "bound_ms": bound_ms,
                         "bound_by": bound_by,
                         "library_ms": ms["library"],
                     }
                 )
-            log(f"{mix} {dt} blocks {(bt, bk, bn)}: {ms}, bound {bound_ms} ms")
+                fused[mode].append(
+                    {
+                        "round": f"{mix}/{dt}",
+                        "ms": ms[f"fused_{mode}"],
+                        "kernel_ms": kernel_ms["fused_tenant_gemm"],
+                        "device_ms": prof["fused_tenant_gemm"][1],
+                        "host_us": host["fused_tenant_gemm"],
+                        "fused_bound_ms": fused_bound_ms,
+                        "fused_bound_by": fused_bound_by,
+                        "library_ms": ms["library"],
+                    }
+                )
+                log(f"{mix} {dt} {mode}: {rounds[mode][-1]} | fused {fused[mode][-1]}")
+            log(f"{mix} {dt} blocks {(bt, bk, bn)}: {ms}")
         log(f"{mix} {dt}: checked")
 
     record = []
@@ -329,38 +465,11 @@ def kernel_phase(torch, K) -> list[dict]:
                 "library_ms": head["library_ms"],
                 "headline": head["round"],
                 "rounds": rounds[mode],
+                "fused": fused[mode],
+                "build": {dt: details.get(f"{mode}/{dt}", {}) for dt in DTYPES},
             }
         )
     return record
-
-
-def check_run_list(K, live_extents, stats, padded, kw, tile) -> None:
-    """The compact launch list holds exactly the live (n, t) tiles that
-    ``grid_accounting`` counts: disjoint CTA tiles whose live area equals
-    the accounting's drained live tiles."""
-    xs_pad, _, owner, vt, vk = padded
-    T, Kd = xs_pad.shape[1], xs_pad.shape[2]
-    bt, bk, bn = kw["block_t"], kw["block_k"], kw["block_n"]
-    tile_rows, tile_cols = tile
-    tl, kl = live_extents(owner, vt, vk, T=T, K=Kd, block_t=bt, block_k=bk)
-    runs = K.compact_run_list(
-        tl,
-        kl,
-        block_t=bt,
-        block_k=bk,
-        block_n=bn,
-        tile_rows=tile_rows,
-        tile_cols=tile_cols,
-    )
-    sub = -(-bn // tile_cols)
-    nb, j = np.divmod(runs[:, 0].astype(np.int64), sub)
-    cols = np.minimum(tile_cols, bn - j * tile_cols)
-    rows = np.minimum(tile_rows, runs[:, 3].astype(np.int64) - runs[:, 1] * tile_rows)
-    check((rows > 0).all(), "run list holds a tile with no live row")
-    check(len({(a, b) for a, b in runs[:, :2].tolist()}) == len(runs), "tile twice")
-    live_elems = stats.accounting.out_bytes_written // 4
-    check(int((rows * cols).sum()) == live_elems, "run list != live tiles")
-    check(np.array_equal(runs[:, 2], kl[nb] * bk), "run list depth != live depth")
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +588,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = environment(torch, _build)
-    kernels = kernel_phase(torch, K)
+    details = build_details(_build)
+    kernels = kernel_phase(torch, K, details)
     serving_phase(torch)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

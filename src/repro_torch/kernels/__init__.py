@@ -13,13 +13,16 @@ from repro_torch.kernels.ops import (
 from repro_torch.kernels.partitioned_matmul import (
     GRID_MODES,
     BlockAccounting,
-    compact_run_list,
+    LaunchTable,
     grid_accounting,
-    kernel_smem_bytes,
     launch_counts,
+    launch_table,
     live_block_tables,
     partitioned_matmul,
     reset_launch_counts,
+    stacked_table,
+    tenant_matmul,
+    tenant_table,
 )
 from repro_torch.kernels.ref import matmul_ref, partitioned_matmul_ref
 
@@ -28,13 +31,13 @@ __all__ = [
     "BlockAccounting",
     "FusedGemmStats",
     "GRID_MODES",
+    "LaunchTable",
     "autotune_blocks",
     "build_owner_map",
-    "compact_run_list",
     "fused_tenant_gemm",
     "grid_accounting",
-    "kernel_smem_bytes",
     "launch_counts",
+    "launch_table",
     "live_block_tables",
     "matmul_ref",
     "pad_operands",
@@ -43,4 +46,7 @@ __all__ = [
     "record_gemm_stats",
     "reset_launch_counts",
     "sequential_tenant_gemm",
+    "stacked_table",
+    "tenant_matmul",
+    "tenant_table",
 ]

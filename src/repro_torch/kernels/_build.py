@@ -4,7 +4,9 @@
 shared library with a plain C interface.  The library lands in
 ``build/repro_torch_kernels/<hash>/`` at the root of the checkout, named by a
 hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is.  Nothing is downloaded.
+unchanged one is loaded as it is.  ``ptxas -v`` (registers, shared memory
+and spills of every kernel instantiation) is kept beside it in
+``ptxas.log``.  Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 # seconds the last build took (0.0 when the library was already built)
@@ -70,28 +74,50 @@ def load() -> ctypes.CDLL:
             )
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            (so.parent / "ptxas.log").write_text(proc.stderr)
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         last_build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    pi32 = ctypes.POINTER(ctypes.c_int)
-    lib.pm_geometry.argtypes = [pi32, pi32, pi32, pi32]
-    lib.pm_geometry.restype = i32
     # every pointer, the stream included, is c_void_p: without argtypes
     # ctypes would pass a Python int as a 32-bit C int and cut the address
-    lib.pm_dense.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr] + [i32] * 6 + [ptr]
-    lib.pm_dense.restype = i32
-    lib.pm_compact.argtypes = [i32, ptr, ptr, ptr, ptr, i32, ptr] + [i32] * 4 + [ptr]
-    lib.pm_compact.restype = i32
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.pm_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.pm_layout.restype = i32
+    lib.pm_launch.argtypes = [i32, i32, ptr, i32, ptr]
+    lib.pm_launch.restype = i32
     return lib
 
 
+LAYOUT_FIELDS = (
+    "params_bytes",
+    "buffers_offset",
+    "tenants_offset",
+    "tenant_bytes",
+    "segments_offset",
+    "segment_bytes",
+    "max_buffers",
+    "max_tenants",
+    "max_segments",
+    "tile_rows",
+    "tile_cols",
+    "zero_rows",
+    "smem_float32",
+    "smem_bfloat16",
+)
+
+
 @functools.cache
-def geometry() -> tuple[int, int, int, int]:
-    """``(tile_rows, tile_cols, tile_depth, smem_bytes)`` of the CTA tile."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    load().pm_geometry(*(ctypes.byref(v) for v in vals))
-    return tuple(v.value for v in vals)
+def layout() -> dict[str, int]:
+    """The launch table's C layout and the CTA geometry, as the library
+    reports them (see ``pm_layout`` in the source)."""
+    vals = (ctypes.c_int * len(LAYOUT_FIELDS))()
+    load().pm_layout(vals)
+    return dict(zip(LAYOUT_FIELDS, vals))
+
+
+def ptxas_log() -> str:
+    """What ``ptxas -v`` said when the library was built."""
+    return (library_path().parent / "ptxas.log").read_text()

@@ -1,11 +1,14 @@
 """Host-facing wrappers around the partitioned-GEMM kernels.
 
 Counterpart of ``repro.kernels.ops``.  ``fused_tenant_gemm`` takes one
-(x, w) GEMM per tenant — arbitrary ragged shapes — pads them to a shared
-geometry, builds the column-block ``owner`` map (each tenant's columns are a
-contiguous run of blocks: the paper's vertical slices), makes ONE fused
-kernel call and splits the outputs back out.  The zero padding is what makes
-the ragged fusion exact (see ``ref.py``).
+(x, w) GEMM per tenant — arbitrary ragged shapes — and makes ONE fused
+kernel call.  On the card the kernels read every tenant's own tensors in
+place and write each tenant's own output (``tenant_matmul``); on the CPU the
+plain version runs on the JAX package's geometry: every operand
+zero-padded to a shared shape, a column-block ``owner`` map (each tenant's
+columns a contiguous run of blocks: the paper's vertical slices), the
+outputs split back out.  The zero padding is what makes that ragged fusion
+exact (see ``ref.py``).
 
 On top of the raw kernel this layer picks the grid mode (``"auto"``: the
 compact live-tile launch whenever the ragged mix leaves dead blocks, the
@@ -27,6 +30,7 @@ from repro_torch.kernels.partitioned_matmul import (
     BlockAccounting,
     grid_accounting,
     partitioned_matmul,
+    tenant_matmul,
 )
 
 # candidate partition-block edge lengths the autotuner searches per dimension
@@ -59,6 +63,7 @@ def build_owner_map(n_cols: Sequence[int], block_n: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=1024)
 def _geometry_accounting(
     shapes: tuple[tuple[int, int, int], ...],
     block_t: int,
@@ -174,8 +179,12 @@ def record_gemm_stats(registry, stats: FusedGemmStats) -> None:
 def _operand_dtypes(xs, ws) -> tuple[torch.dtype, torch.dtype]:
     """The fused call's operand dtypes.  Mixed x/w dtypes promote to a
     common type here, BEFORE the byte accounting, as the kernel call will."""
-    x_dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
-    w_dt = functools.reduce(torch.promote_types, (w.dtype for w in ws))
+    x_dts, w_dts = {x.dtype for x in xs}, {w.dtype for w in ws}
+    if len(x_dts) == 1 and x_dts == w_dts:  # the common case, without promotion
+        (dt,) = x_dts
+        return dt, dt
+    x_dt = functools.reduce(torch.promote_types, x_dts)
+    w_dt = functools.reduce(torch.promote_types, w_dts)
     if x_dt != w_dt:
         x_dt = w_dt = torch.promote_types(x_dt, w_dt)
     return x_dt, w_dt
@@ -228,8 +237,11 @@ def fused_tenant_gemm(
     """Run every tenant's GEMM ``xs[i] @ ws[i]`` in ONE fused kernel call.
 
     xs[i]: (T_i, K_i);  ws[i]: (K_i, N_i).  Returns [(T_i, N_i) f32, ...]
-    — or ``(outs, FusedGemmStats)`` with ``return_stats=True``.  The outputs
-    are views into the one fused output.
+    — or ``(outs, FusedGemmStats)`` with ``return_stats=True``.  On CUDA
+    tensors each output is its own contiguous tensor, written by the one
+    launch; nothing is padded and no shared (T, N) buffer exists.  On CPU
+    tensors the outputs are views into the plain version's padded output.
+    The stats count the partition-block model of the JAX package either way.
 
     Block sizes left as ``None`` are autotuned per geometry (see
     :func:`autotune_blocks`); ``grid_mode`` is ``"dense"``, ``"compact"``
@@ -237,22 +249,23 @@ def fused_tenant_gemm(
     """
     if len(xs) != len(ws) or not xs:
         raise ValueError("need one (x, w) pair per tenant")
-    for i, (x, w) in enumerate(zip(xs, ws)):
-        if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-            raise ValueError(
-                f"tenant {i}: bad shapes {tuple(x.shape)} @ {tuple(w.shape)}"
-            )
+    for i, (xsh, wsh) in enumerate(zip([x.shape for x in xs], [w.shape for w in ws])):
+        if len(xsh) != 2 or len(wsh) != 2 or xsh[1] != wsh[0]:
+            raise ValueError(f"tenant {i}: bad shapes {tuple(xsh)} @ {tuple(wsh)}")
     if grid_mode not in ("auto", "dense", "compact"):
         raise ValueError(
             f"grid_mode must be 'auto', 'dense' or 'compact', got {grid_mode!r}"
         )
 
-    shapes = tuple(
-        (int(x.shape[0]), int(x.shape[1]), int(w.shape[1])) for x, w in zip(xs, ws)
-    )
+    shapes = tuple((x.shape[0], x.shape[1], w.shape[1]) for x, w in zip(xs, ws))
     x_dt, w_dt = _operand_dtypes(xs, ws)
     x_dtype, w_dtype = _dtype_name(x_dt), _dtype_name(w_dt)
-    if block_t is None or block_k is None or block_n is None:
+    on_card = xs[0].device.type == "cuda"
+    # the kernels on the card do not use the partition blocks: they are
+    # tuned only where they decide something (the CPU geometry, auto mode,
+    # the stats)
+    blocks_needed = not on_card or grid_mode == "auto" or return_stats
+    if blocks_needed and (block_t is None or block_k is None or block_n is None):
         tuned = autotune_blocks(
             shapes,
             x_dtype,
@@ -270,19 +283,25 @@ def fused_tenant_gemm(
         )
         grid_mode = "compact" if probe.blocks_live < probe.blocks_total else "dense"
 
-    out = partitioned_matmul(
-        *pad_operands(xs, ws, block_t=block_t, block_k=block_k, block_n=block_n),
-        block_t=block_t,
-        block_k=block_k,
-        block_n=block_n,
-        grid_mode=grid_mode,
-    )
-
-    outs = []
-    col = 0
-    for t, _, n in shapes:
-        outs.append(out[:t, col : col + n])
-        col += _round_up(n, block_n)
+    if on_card:
+        outs = tenant_matmul(
+            [x if x.dtype == x_dt else x.to(x_dt) for x in xs],
+            [w if w.dtype == w_dt else w.to(w_dt) for w in ws],
+            shapes,
+            grid_mode == "dense",
+        )
+    else:
+        out = partitioned_matmul(
+            *pad_operands(xs, ws, block_t=block_t, block_k=block_k, block_n=block_n),
+            block_t=block_t,
+            block_k=block_k,
+            block_n=block_n,
+            grid_mode=grid_mode,
+        )
+        outs, col = [], 0
+        for t, _, n in shapes:
+            outs.append(out[:t, col : col + n])
+            col += _round_up(n, block_n)
     if not return_stats:
         return outs
     if probe is not None and grid_mode == "dense":

@@ -9,25 +9,36 @@ tenant's idle rows and depth from firing.  Here, as in the JAX package:
 * vertical slices   →  disjoint contiguous **N-block ranges**, one per tenant
   (the ``owner`` map — the partition table of Algorithm 1);
 * ``Mul_En`` gating →  ``grid_mode="dense"`` launches every output tile and
-  gates each dead K step (past a tenant's valid rows or reduction depth);
-  ``grid_mode="compact"`` launches only the live tiles, from a run list built
-  on the host, so dead work is neither scheduled nor fetched.
+  gates the dead ones (past a tenant's valid rows, or a tenant with no
+  depth); ``grid_mode="compact"`` launches only the live tiles, so dead work
+  is neither scheduled nor fetched.
 
 All tenants share ONE kernel launch.  The kernels are hand-written CUDA C++
-(``csrc/partitioned_matmul.cu``), built at first use by ``_build.py``.  On
-CPU tensors :func:`partitioned_matmul` computes the plain version
+(``csrc/partitioned_matmul.cu``), built at first use by ``_build.py``, and
+read a launch table (:class:`LaunchTable`) passed by value: per tenant its
+x and live extents, per column segment its tenant, w and output.  Operands
+are read in place, so the stacked API (:func:`partitioned_matmul`) and the
+per-tenant form (:func:`tenant_matmul`, ``ops.fused_tenant_gemm``'s card
+path) run the same kernels.  On CPU tensors
+:func:`partitioned_matmul` computes the plain version
 (``ref.partitioned_matmul_ref``); on CUDA tensors it launches a kernel or
 raises.
 
-The host side (dtype contract, live-block tables, accounting) is NumPy, as
-the JAX package's host side is; ``grid_accounting`` counts in the partition
-blocks ``(block_t, block_k, block_n)``, which decide liveness and ownership.
-The kernels' CTA tile is their own (see the CUDA source).
+The host side (dtype contract, live-block tables, accounting, the launch
+table) is NumPy and plain Python, as the JAX package's host side is;
+``grid_accounting`` counts in the partition blocks ``(block_t, block_k,
+block_n)``, which decide ownership and which blocks are dead.  The kernels
+mask rows and depth exactly at the tenant's valid extents, in their own CTA
+tile (see the CUDA source): under the zero-padding contract the result is
+the same.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -172,35 +183,6 @@ def live_block_tables(
     return _tables_from_extents(tl, kl)
 
 
-def compact_run_list(
-    tl: np.ndarray,
-    kl: np.ndarray,
-    *,
-    block_t: int,
-    block_k: int,
-    block_n: int,
-    tile_rows: int,
-    tile_cols: int,
-) -> np.ndarray:
-    """The compact kernel's launch list: one int32 row per CTA.
-
-    A row is ``(cta_col, cta_row, k_end, row_end)``: the CTA's column tile
-    (column block ``n`` is cut into ``ceil(block_n / tile_cols)`` of them),
-    its row tile, the live depth ``k_live · block_k`` and the live row bound
-    ``t_live · block_t`` of the block column.  Only tiles holding live rows
-    appear, so the list covers exactly the live ``(n, t)`` blocks.
-    """
-    sub = _ceil_div(block_n, tile_cols)
-    row_end = tl.astype(np.int64) * block_t
-    row_tiles = -(-row_end // tile_rows)
-    per_n = row_tiles * sub  # CTAs of each block column, j-major then t
-    n = np.repeat(np.arange(tl.shape[0]), per_n)
-    i = np.arange(n.size) - np.repeat(np.cumsum(per_n) - per_n, per_n)
-    j, t = np.divmod(i, np.maximum(row_tiles[n], 1))
-    runs = np.stack([n * sub + j, t, kl[n] * block_k, row_end[n]], axis=1)
-    return runs.astype(np.int32).reshape(-1, 4)
-
-
 @dataclasses.dataclass(frozen=True)
 class BlockAccounting:
     """Per-call grid/traffic accounting of one ``partitioned_matmul``.
@@ -300,116 +282,275 @@ def grid_accounting(
 
 
 # ---------------------------------------------------------------------------
-# kernel launches
+# the launch table (host side) and the launch
 # ---------------------------------------------------------------------------
 
-
-def kernel_smem_bytes() -> int:
-    """Static shared memory one CTA of either kernel needs (both operand
-    types are staged as float32, so the need does not depend on them)."""
-    return _build.geometry()[3]
-
-
-def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """int32 partition tables to the card, asynchronously on the current
-    stream (pinned staging; the caching host allocator keeps the staging
-    buffer alive until the copy is done)."""
-    staged = torch.from_numpy(np.ascontiguousarray(host, np.int32)).pin_memory()
-    return staged.to(device, non_blocking=True)
+# CTA geometry and table capacity of csrc/partitioned_matmul.cu (BM, BN,
+# ZERO_ROWS, MAX_TENANTS, MAX_SEGMENTS); ``_layout`` holds them against the
+# built library
+TILE_ROWS = 64
+TILE_COLS = 64
+ZERO_ROWS = 256
+MAX_TENANTS = 64
+MAX_SEGMENTS = 256
 
 
-def _check_cuda_operands(xs: torch.Tensor, w: torch.Tensor) -> None:
-    if w.device != xs.device:
-        raise ValueError(f"xs is on {xs.device} but w is on {w.device}")
-    if not (xs.is_contiguous() and w.is_contiguous()):
-        raise ValueError("the CUDA kernels need contiguous xs and w")
-    props = torch.cuda.get_device_properties(xs.device)
-    limit = getattr(
-        props, "shared_memory_per_block_optin", props.shared_memory_per_block
-    )
-    need = kernel_smem_bytes()
-    if need > limit:
+class Tenant(NamedTuple):
+    """A tenant's x: element ``x_off + r * ldx + k`` of buffer ``x`` is
+    ``x[r][k]``.  ``rows``/``depth`` are its live rows and reduction depth,
+    ``out_rows`` the rows of the caller's output its columns have."""
+
+    x: int
+    x_off: int
+    ldx: int
+    rows: int
+    depth: int
+    out_rows: int
+
+
+class Segment(NamedTuple):
+    """A run of ``cols`` columns owned by one tenant: ``w[k][c]`` is element
+    ``w_off + k * ldw + c`` of buffer ``w`` and ``out[r][c]`` element
+    ``out_off + r * ldo + c`` of buffer ``out`` (f32)."""
+
+    w: int
+    w_off: int
+    ldw: int
+    out: int
+    out_off: int
+    ldo: int
+    cols: int
+    tenant: int
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchTable:
+    """One kernel launch.  Segment ``i`` owns CTAs ``first[i]`` up to the
+    next segment's first: its ``TILE_ROWS x TILE_COLS`` tiles, row tile
+    fastest (dense: ``grid_rows`` row tiles per column tile, a dead one
+    zeroed or skipped; compact: the live ones), then, compact only, its
+    ``ZERO_ROWS x TILE_COLS`` zero-fill tiles for the caller's rows below
+    the live ones.  Segments are in launch order, the deepest tenant's
+    first, so the longest K loops start first and the zero stores overlap
+    the arithmetic."""
+
+    dense: bool
+    tenants: tuple[Tenant, ...]
+    segments: tuple[Segment, ...]
+    first: tuple[int, ...]
+    grid_rows: int
+    grid: int
+
+    @functools.cached_property
+    def packed(self) -> np.ndarray:
+        """The table as the kernel's ``Params`` bytes, buffer addresses left
+        0: built once per table, so a launch only writes the addresses."""
+        lay = _layout()
+        blob = np.zeros(lay["params_bytes"], np.uint8)
+        _HEAD.pack_into(blob, 0, len(self.segments), self.grid_rows)
+        off = lay["tenants_offset"]
+        for t in self.tenants:
+            fields = (t.x_off, t.x, t.ldx, t.rows, t.depth, t.out_rows, 0)
+            _TENANT.pack_into(blob, off, *fields)
+            off += _TENANT.size
+        off = lay["segments_offset"]
+        for s, first in zip(self.segments, self.first):
+            fields = (s.w_off, s.out_off, s.w, s.out, s.ldw, s.ldo, s.cols, s.tenant)
+            _SEGMENT.pack_into(blob, off, *fields, first, 0)
+            off += _SEGMENT.size
+        return blob
+
+
+def launch_table(tenants, segments, *, dense: bool) -> LaunchTable:
+    """Schedule ``segments`` (each naming a tenant of ``tenants``) as one
+    launch of the dense or the compact kernel.  A tenant with no depth has
+    no live rows.  Raises ``ValueError`` past the table's capacity."""
+    if len(tenants) > MAX_TENANTS:
         raise ValueError(
-            f"the kernels' CTA tile needs {need} B of shared memory but "
-            f"{props.name} allows {limit} B per block"
+            f"{len(tenants)} tenants exceed the launch table's capacity "
+            f"(MAX_TENANTS = {MAX_TENANTS})"
         )
-
-
-def _dense_launch(xs, w, owner, valid_t, valid_k, *, block_t, block_k, block_n):
-    global dense_launches
-    _, T, K = xs.shape
-    N = w.shape[1]
-    out = torch.empty((T, N), dtype=torch.float32, device=xs.device)
-    if out.numel() == 0:
-        return out
-    tables = _upload(np.concatenate([owner, valid_t, valid_k]), xs.device)
-    base, n_own, E = tables.data_ptr(), owner.size, valid_t.size
-    with torch.cuda.device(xs.device):
-        err = _build.load().pm_dense(
-            int(xs.dtype == torch.bfloat16),
-            xs.data_ptr(),
-            w.data_ptr(),
-            out.data_ptr(),
-            base,
-            base + 4 * n_own,
-            base + 4 * (n_own + E),
-            T,
-            K,
-            N,
-            block_t,
-            block_k,
-            block_n,
-            torch.cuda.current_stream(xs.device).cuda_stream,
+    if len(segments) > MAX_SEGMENTS:
+        raise ValueError(
+            f"{len(segments)} column segments exceed the launch table's "
+            f"capacity (MAX_SEGMENTS = {MAX_SEGMENTS})"
         )
-    if err:
-        raise RuntimeError(f"dense kernel launch failed: CUDA error {err}")
-    dense_launches += 1
-    return out
-
-
-def _compact_launch(xs, w, owner, valid_t, valid_k, *, block_t, block_k, block_n):
-    global compact_launches
-    _, T, K = xs.shape
-    N = w.shape[1]
-    tl, kl = _live_extents(
-        owner, valid_t, valid_k, T=T, K=K, block_t=block_t, block_k=block_k
+    tenants = tuple(
+        t._replace(rows=min(max(t.rows, 0), t.out_rows) if t.depth > 0 else 0)
+        for t in tenants
     )
-    tile_rows, tile_cols, _, _ = _build.geometry()
-    runs = compact_run_list(
-        tl,
-        kl,
-        block_t=block_t,
-        block_k=block_k,
-        block_n=block_n,
-        tile_rows=tile_rows,
-        tile_cols=tile_cols,
+    segments = tuple(sorted(segments, key=lambda s: -tenants[s.tenant].depth))
+    grid_rows = 0
+    if dense and segments:
+        out_rows = [tenants[s.tenant].out_rows for s in segments]
+        grid_rows = _ceil_div(max(out_rows), TILE_ROWS)
+    first, grid = [], 0
+    for s in segments:
+        t = tenants[s.tenant]
+        col_tiles = _ceil_div(s.cols, TILE_COLS)
+        live = _ceil_div(t.rows, TILE_ROWS)
+        first.append(grid)
+        grid += col_tiles * (grid_rows if dense else live)
+        if not dense:
+            dead = t.out_rows - live * TILE_ROWS
+            grid += col_tiles * max(0, _ceil_div(dead, ZERO_ROWS))
+    return LaunchTable(dense, tenants, segments, tuple(first), grid_rows, grid)
+
+
+@functools.lru_cache(maxsize=256)
+def stacked_table(xs_shape, N, owner, valid_t, valid_k, block_n, dense):
+    """The table of ``partitioned_matmul``'s stacked operands (all arguments
+    ints or tuples of ints; cached per geometry): buffer 0 is ``xs`` (E, T,
+    K), 1 is ``w`` (K, N), 2 the (T, N) output.  Adjacent column blocks of
+    one owner form one segment."""
+    E, T, K = xs_shape
+    tenants = [
+        Tenant(0, e * T * K, K, min(max(vt, 0), T), min(max(vk, 0), K), T)
+        for e, (vt, vk) in enumerate(zip(valid_t, valid_k))
+    ]
+    segments, start = [], 0
+    for j in range(1, len(owner) + 1):
+        if j == len(owner) or owner[j] != owner[start]:
+            c0 = start * block_n
+            cols = (j - start) * block_n
+            segments.append(Segment(1, c0, N, 2, c0, N, cols, owner[start]))
+            start = j
+    return launch_table(tenants, segments, dense=dense)
+
+
+@functools.lru_cache(maxsize=256)
+def tenant_table(shapes, ldx, ldw, dense):
+    """The table of the per-tenant form (all arguments tuples; cached per
+    geometry): for E tenants of ``(T_i, K_i, N_i)`` shapes, buffer ``i`` is
+    x_i (row stride ``ldx[i]``), ``E + i`` is w_i (row stride ``ldw[i]``)
+    and ``2 E + i`` the contiguous ``(T_i, N_i)`` output.  Only the tenants'
+    own rows are scheduled."""
+    E = len(shapes)
+    tenants = [Tenant(i, 0, ldx[i], t, k, t) for i, (t, k, _) in enumerate(shapes)]
+    segments = [
+        Segment(E + i, 0, ldw[i], 2 * E + i, 0, n, n, i)
+        for i, (t, _, n) in enumerate(shapes)
+        if t > 0 and n > 0
+    ]
+    return launch_table(tenants, segments, dense=dense)
+
+
+_HEAD = struct.Struct("<2i")
+_TENANT = struct.Struct("<q6i")
+_SEGMENT = struct.Struct("<2q8i")
+
+
+@functools.cache
+def _addresses(n: int) -> struct.Struct:
+    return struct.Struct(f"<{n}q")
+
+
+@functools.cache
+def _layout() -> dict[str, int]:
+    """The built library's table layout, held against this module's."""
+    lay = _build.layout()
+    want = {
+        "buffers_offset": _HEAD.size,
+        "tenant_bytes": _TENANT.size,
+        "segment_bytes": _SEGMENT.size,
+        "max_buffers": 3 * MAX_TENANTS,
+        "max_tenants": MAX_TENANTS,
+        "max_segments": MAX_SEGMENTS,
+        "tile_rows": TILE_ROWS,
+        "tile_cols": TILE_COLS,
+        "zero_rows": ZERO_ROWS,
+    }
+    bad = {k: (lay[k], v) for k, v in want.items() if lay[k] != v}
+    if bad:
+        raise RuntimeError(f"launch table layout differs from the library: {bad}")
+    return lay
+
+
+def _pack(table: LaunchTable, bufs) -> np.ndarray:
+    """The table as the kernel's ``Params`` bytes, with the buffers'
+    device addresses."""
+    blob = table.packed.copy()
+    _addresses(len(bufs)).pack_into(
+        blob, _HEAD.size, *[b.data_ptr() for b in bufs]
     )
-    # unvisited tiles must read zero: zero the whole output first (the TPU
-    # version masks them after the call instead)
-    out = torch.zeros((T, N), dtype=torch.float32, device=xs.device)
-    if runs.shape[0] == 0:  # nothing live: the contract output is all zeros
-        return out
-    tables = _upload(np.concatenate([runs.ravel(), owner]), xs.device)
-    base = tables.data_ptr()
-    with torch.cuda.device(xs.device):
-        err = _build.load().pm_compact(
-            int(xs.dtype == torch.bfloat16),
-            xs.data_ptr(),
-            w.data_ptr(),
-            out.data_ptr(),
-            base,
-            runs.shape[0],
-            base + 4 * runs.size,
-            T,
-            K,
-            N,
-            block_n,
-            torch.cuda.current_stream(xs.device).cuda_stream,
+    return blob
+
+
+# the current stream's handle without building a Stream object (the binding
+# PyTorch's own generated code uses); absent from CPU-only builds
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+@functools.cache
+def _check_device(index: int) -> None:
+    """Once per device: the kernels' shared memory fits a block."""
+    props = torch.cuda.get_device_properties(index)
+    lay = _layout()
+    need = max(lay["smem_float32"], lay["smem_bfloat16"])
+    if need > props.shared_memory_per_block:
+        raise ValueError(
+            f"the kernels need {need} B of shared memory per block but "
+            f"{props.name} allows {props.shared_memory_per_block} B"
         )
+
+
+def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device) -> None:
+    """Launch ``table`` on ``device``'s current stream (no launch when it
+    schedules no CTA) and count it."""
+    global dense_launches, compact_launches
+    if table.grid == 0:
+        return
+    _check_device(device.index)
+    blob = _pack(table, bufs)
+    if _raw_stream is not None:
+        stream = _raw_stream(device.index)
+    else:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    args = (int(table.dense), int(bf16), blob.ctypes.data, table.grid, stream)
+    lib = _build.load()
+    if device.index == torch.cuda.current_device():
+        err = lib.pm_launch(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.pm_launch(*args)
+    name = "dense" if table.dense else "compact"
     if err:
-        raise RuntimeError(f"compact kernel launch failed: CUDA error {err}")
-    compact_launches += 1
-    return out
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if table.dense:
+        dense_launches += 1
+    else:
+        compact_launches += 1
+
+
+def tenant_matmul(xs, ws, shapes, dense: bool) -> list[torch.Tensor]:
+    """The per-tenant form on the card (``fused_tenant_gemm``'s card path):
+    ``xs[i] @ ws[i]`` as a contiguous ``(T_i, N_i)`` f32 tensor for every
+    tenant, all in one launch, each operand read in place (its row stride
+    taken as it is; a tensor whose rows are not unit-stride is made
+    contiguous first).  ``shapes`` are the ``(T_i, K_i, N_i)``; the operands
+    are CUDA tensors on one device, all of one dtype (the caller's check),
+    bfloat16 or float32."""
+    device, dtype = xs[0].device, xs[0].dtype
+    if dtype not in _ALLOWED_DTYPES:
+        raise TypeError(f"operand dtype {dtype} unsupported: bfloat16 or float32")
+    index = device.index
+    operands, lds = [], []
+    for a in (*xs, *ws):
+        if a.get_device() != index:
+            raise ValueError(f"every operand must be on {device}, got {a.device}")
+        stride = a.stride()
+        if stride[-1] != 1:
+            a = a.contiguous()
+            stride = a.stride()
+        operands.append(a)
+        lds.append(stride[0])
+    E = len(xs)
+    outs = [
+        torch.empty((t, n), dtype=torch.float32, device=device) for t, _, n in shapes
+    ]
+    table = tenant_table(shapes, tuple(lds[:E]), tuple(lds[E:]), dense)
+    _launch(table, (*operands, *outs), dtype == torch.bfloat16, device)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -444,8 +585,9 @@ def partitioned_matmul(
     check has no counterpart here.
 
     On CPU tensors the result is the plain version; on CUDA tensors
-    ``grid_mode="dense"`` launches every output tile and gates dead K steps,
-    ``"compact"`` launches only the live tiles — identical results.
+    ``grid_mode="dense"`` launches every output tile and gates the dead ones,
+    ``"compact"`` launches only the live tiles (and zero-fill CTAs for the
+    dead rows, in the same launch) — identical results.
     Operands must be bfloat16 or float32 (mixed pairs promote to float32).
     """
     xs, w = _validate_promote(xs, w)
@@ -463,7 +605,8 @@ def partitioned_matmul(
     owner = _host_ints(owner)
     if owner.shape != (n_blocks,):
         raise ValueError(f"owner must be ({n_blocks},), got {owner.shape}")
-    if owner.size and (owner.min() < 0 or owner.max() >= E):
+    own = tuple(owner.tolist())
+    if own and (min(own) < 0 or max(own) >= E):
         raise ValueError(f"owner entries must lie in [0, {E})")
     valid_t = _host_ints(valid_t)
     valid_k = np.full((E,), K, np.int64) if valid_k is None else _host_ints(valid_k)
@@ -480,16 +623,20 @@ def partitioned_matmul(
         )
     if xs.device.type != "cuda":
         raise ValueError(f"no kernel for device {xs.device}")
-    _check_cuda_operands(xs, w)
-    launch = _dense_launch if grid_mode == "dense" else _compact_launch
-    return launch(
-        xs,
-        w,
-        owner,
-        valid_t,
-        valid_k,
-        block_t=block_t,
-        block_k=block_k,
-        block_n=block_n,
+    if w.device != xs.device:
+        raise ValueError(f"xs is on {xs.device} but w is on {w.device}")
+    if not (xs.is_contiguous() and w.is_contiguous()):
+        raise ValueError("the CUDA kernels need contiguous xs and w")
+    out = torch.empty((T, N), dtype=torch.float32, device=xs.device)
+    table = stacked_table(
+        (E, T, K),
+        N,
+        own,
+        tuple(valid_t.tolist()),
+        tuple(valid_k.tolist()),
+        block_n,
+        grid_mode == "dense",
     )
+    _launch(table, (xs, w, out), xs.dtype == torch.bfloat16, xs.device)
+    return out
 

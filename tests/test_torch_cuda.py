@@ -8,7 +8,8 @@ first use) and skips elsewhere.  Run on the card with
 The file imports no JAX: the card's machine has none.  ``chip_smoke.py``
 covers the main path's shapes; these tests cover what it does not — partition
 blocks that are not multiples of the 64 × 64 CTA tile (masked column, row
-and depth bounds), the wrapper's checks and the launch counters.
+and depth bounds), operands at any alignment read in place, the wrapper's
+checks and the launch counters.
 """
 
 import numpy as np
@@ -19,10 +20,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (
     fused_tenant_gemm,
     launch_counts,
+    ops,
     pad_operands,
     partitioned_matmul,
     partitioned_matmul_ref,
 )
+from repro_torch.kernels.partitioned_matmul import MAX_SEGMENTS, MAX_TENANTS
 
 pytestmark = pytest.mark.cuda
 
@@ -103,14 +106,90 @@ def test_counters_count_launches_only(cuda):
     before = launch_counts()
     xs = torch.ones((1, 128, 128), device=cuda)
     w = torch.ones((128, 128), device=cuda)
-    out = partitioned_matmul(xs, w, [0], [0], grid_mode="compact")  # nothing live
-    assert torch.all(out == 0) and launch_counts() == before
+    # nothing live: the launch holds only zero-fill CTAs (nothing else
+    # zeroes the output), and it counts
+    out = partitioned_matmul(xs, w, [0], [0], grid_mode="compact")
+    assert torch.all(out == 0)
     partitioned_matmul(xs, w, [0], [128], grid_mode="compact")
     partitioned_matmul(xs, w, [0], [128], grid_mode="dense")
     partitioned_matmul(xs.cpu(), w.cpu(), [0], [128])  # plain version: no launch
+    fused_tenant_gemm([xs[0, :0]], [w], grid_mode="dense")  # no CTA: no launch
     after = launch_counts()
-    assert after["compact"] == before["compact"] + 1
+    assert after["compact"] == before["compact"] + 2
     assert after["dense"] == before["dense"] + 1
+
+
+# odd depths and widths: rows of x and w on 4-byte (f32) and 2-byte (bf16)
+# boundaries, outputs with odd row strides, a tenant with no depth
+UNALIGNED = [(37, 363, 101), (129, 147, 65), (1, 33, 7), (300, 153, 100), (5, 0, 9)]
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_tenants_bit_exact_through_both_entry_points(cuda, dtype, grid_mode):
+    xs, ws = _operands(UNALIGNED, dtype, cuda, integer=True, seed=2)
+    outs = fused_tenant_gemm(xs, ws, grid_mode=grid_mode)
+    kw = dict(block_t=64, block_k=32, block_n=32)
+    padded = pad_operands(xs, ws, **kw)
+    stacked = partitioned_matmul(*padded, grid_mode=grid_mode, **kw)
+    plain = _plain(padded, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(stacked, plain)
+    for x, w, out in zip(xs, ws, outs):
+        assert torch.equal(out, x.float() @ w.float())
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_tenants_random_operands(cuda, dtype, grid_mode):
+    xs, ws = _operands(UNALIGNED[:4], dtype, cuda, integer=False, seed=3)
+    outs = fused_tenant_gemm(xs, ws, grid_mode=grid_mode)
+    kw = dict(block_t=128, block_k=128, block_n=128)
+    padded = pad_operands(xs, ws, **kw)
+    stacked = partitioned_matmul(*padded, grid_mode=grid_mode, **kw)
+    plain = _plain(padded, 128)
+    assert ((stacked - plain).abs().max() / plain.abs().max()).item() < 1e-4
+    for x, w, out in zip(xs, ws, outs):
+        ref = x.float() @ w.float()
+        assert ((out - ref).abs().max() / ref.abs().max()).item() < 1e-4
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+def test_fused_reads_operands_in_place(cuda, grid_mode, monkeypatch):
+    def no_padding(*args, **kwargs):
+        raise AssertionError("pad_operands on the card path")
+
+    monkeypatch.setattr(ops, "pad_operands", no_padding)
+    big = torch.randint(-4, 5, (64, 300), device=cuda).float()
+    xs = [big[:50, 3:150], big[1:2, :33]]  # row-strided views, odd offsets
+    ws = [torch.randint(-4, 5, (147, 65), device=cuda).float()]
+    ws.append(torch.randint(-4, 5, (33, 7), device=cuda).float())
+    outs = fused_tenant_gemm(xs, ws, grid_mode=grid_mode)
+    for x, w, out in zip(xs, ws, outs):
+        assert out.dtype == torch.float32 and out.is_contiguous()
+        assert out.shape == (x.shape[0], w.shape[1])
+        assert torch.equal(out, x @ w)
+
+
+def test_mixed_dtypes_cast_only_the_bf16_side(cuda):
+    x = torch.randint(-4, 5, (40, 70), device=cuda).to(torch.bfloat16)
+    w = torch.randint(-4, 5, (70, 30), device=cuda).float()
+    (out,) = fused_tenant_gemm([x], [w])
+    assert torch.equal(out, x.float() @ w)
+
+
+def test_wrapper_raises_past_the_table_capacity(cuda):
+    n = MAX_TENANTS + 1
+    xs = [torch.ones((2, 3), device=cuda)] * n
+    ws = [torch.ones((3, 4), device=cuda)] * n
+    with pytest.raises(ValueError, match="MAX_TENANTS"):
+        fused_tenant_gemm(xs, ws, block_t=128, block_k=128, block_n=128)
+    n_blocks = MAX_SEGMENTS + 1
+    xs = torch.ones((2, 16, 16), device=cuda)
+    w = torch.ones((16, 16 * n_blocks), device=cuda)
+    owner = [i % 2 for i in range(n_blocks)]
+    with pytest.raises(ValueError, match="MAX_SEGMENTS"):
+        partitioned_matmul(xs, w, owner, [16, 16], block_t=16, block_k=16, block_n=16)
 
 
 def test_wrapper_checks_devices_and_layout(cuda):

@@ -28,7 +28,6 @@ from repro.sim import workloads as jax_workloads
 from repro_torch.kernels import (
     autotune_blocks,
     build_owner_map,
-    compact_run_list,
     fused_tenant_gemm,
     grid_accounting,
     live_block_tables,
@@ -36,9 +35,17 @@ from repro_torch.kernels import (
     partitioned_matmul_ref,
     record_gemm_stats,
     sequential_tenant_gemm,
+    stacked_table,
+    tenant_table,
 )
 from repro_torch.kernels.ops import _geometry_accounting
-from repro_torch.kernels.partitioned_matmul import _live_extents
+from repro_torch.kernels.partitioned_matmul import (
+    MAX_SEGMENTS,
+    MAX_TENANTS,
+    TILE_COLS,
+    TILE_ROWS,
+    ZERO_ROWS,
+)
 from repro_torch.sim import workloads
 
 # tests/test_kernels.py's TOL: f32 sums reorder (rtol 1e-4 at K=1024); bf16
@@ -198,29 +205,207 @@ class TestHostTables:
                 )
                 assert mine.as_dict() == theirs.as_dict()
 
+    @pytest.mark.parametrize("grid_mode", ["dense", "compact"])
     @pytest.mark.parametrize("seed", range(4))
     @pytest.mark.parametrize("blocks", [(128, 128, 128), (32, 64, 96), (192, 32, 64)])
-    def test_compact_run_list_covers_exactly_the_live_tiles(self, seed, blocks):
+    def test_launch_table_covers_the_output_once(self, seed, blocks, grid_mode):
         bt, bk, bn = blocks
         owner, vt, vk, T, K = self._layout(seed)
         T, K = T // 128 * 3 * bt, K // 128 * 3 * bk
         vt, vk = vt * 3 * bt // 128, vk * 3 * bk // 128
-        tl, kl = _live_extents(owner, vt, vk, T=T, K=K, block_t=bt, block_k=bk)
-        runs = compact_run_list(
-            tl, kl, block_t=bt, block_k=bk, block_n=bn, tile_rows=64, tile_cols=64
+        N = owner.size * bn
+        table = stacked_table(
+            (vt.size, T, K), N, *_ints(owner, vt, vk), bn, grid_mode == "dense"
         )
-        sub = -(-bn // 64)
-        covered = np.zeros((T, owner.size * bn), bool)
-        for ct, tt, k_end, row_end in runs:
-            n, j = divmod(int(ct), sub)
-            c0 = n * bn + j * 64
-            c1 = min(c0 + 64, (n + 1) * bn)
-            r0 = int(tt) * 64
-            assert r0 < row_end and k_end == kl[n] * bk and row_end == tl[n] * bt
-            assert not covered[r0:row_end, c0:c1].any()  # no tile launched twice
-            covered[r0 : min(r0 + 64, row_end), c0:c1] = True
-        live = np.arange(T)[:, None] < np.repeat(tl * bt, bn)[None, :]
-        np.testing.assert_array_equal(covered, live)
+        writes = np.zeros((T, N), np.int64)
+        by_live = np.zeros((T, N), bool)
+        n_live = 0
+        for kind, s, t, row0, col0, r_end, c_end in _walk(table):
+            assert kind != "exit" or grid_mode == "dense"
+            if kind == "exit":
+                continue
+            c0 = s.out_off + col0
+            writes[row0 : row0 + r_end, c0 : c0 + c_end] += 1
+            if kind == "live":
+                n_live += 1
+                by_live[row0 : row0 + r_end, c0 : c0 + c_end] = True
+        np.testing.assert_array_equal(writes, 1)  # every byte once
+        e = owner[np.arange(N) // bn]
+        live = (np.arange(T)[:, None] < vt[e][None, :]) & (vk[e] > 0)[None, :]
+        assert not (live & ~by_live).any()  # every live value is computed
+        col_tiles = [-(-s.cols // TILE_COLS) for s in table.segments]
+        rows = [table.tenants[s.tenant].rows for s in table.segments]
+        want = sum(c * -(-r // TILE_ROWS) for c, r in zip(col_tiles, rows))
+        assert n_live == want  # no CTA computes a tile without live rows
+        if grid_mode == "dense":
+            assert table.grid == sum(col_tiles) * -(-T // TILE_ROWS)
+
+
+def _ints(*arrays):
+    """NumPy int arrays as the tuples that the cached table functions take."""
+    return [tuple(np.asarray(a).tolist()) for a in arrays]
+
+
+def _walk(table):
+    """Every CTA of ``table`` as ``(kind, segment, tenant, row0, col0, r_end,
+    c_end)``, found exactly as ``run_cta`` in the CUDA source finds it: the
+    segment by binary search over the range starts, the tile from the
+    offset in the segment's range (its main tiles, row tile fastest, then
+    its zero-fill tiles).  ``kind`` is "live" (computes), "zero" (writes
+    zeros) or "exit" (no tile of the output)."""
+    for b in range(table.grid):
+        lo, hi = 0, len(table.segments) - 1
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if table.first[mid] <= b:
+                lo = mid
+            else:
+                hi = mid - 1
+        s = table.segments[lo]
+        t = table.tenants[s.tenant]
+        live_tiles = -(-t.rows // TILE_ROWS)
+        row_tiles = table.grid_rows if table.dense else live_tiles
+        col_tiles = -(-s.cols // TILE_COLS)
+        local = b - table.first[lo]
+        if local < row_tiles * col_tiles:
+            row0 = local % row_tiles * TILE_ROWS
+            col0 = local // row_tiles * TILE_COLS
+            tile_rows = TILE_ROWS
+        else:
+            local -= row_tiles * col_tiles
+            fill_tiles = -(-(t.out_rows - live_tiles * TILE_ROWS) // ZERO_ROWS)
+            row0 = live_tiles * TILE_ROWS + local % fill_tiles * ZERO_ROWS
+            col0 = local // fill_tiles * TILE_COLS
+            tile_rows = ZERO_ROWS
+        if row0 >= t.out_rows:
+            yield "exit", s, t, row0, col0, 0, 0
+            continue
+        r_end = min(tile_rows, t.out_rows - row0)
+        c_end = min(TILE_COLS, s.cols - col0)
+        yield ("zero" if row0 >= t.rows else "live"), s, t, row0, col0, r_end, c_end
+
+
+def _interpret(table, bufs):
+    """Run ``table`` on flat float32 NumPy buffers as the kernels would: a
+    live CTA sums its tenant's x rows times its segment's w columns over the
+    live depth and writes zeros in its rows past the live rows; a zero CTA
+    writes zeros.  Returns the number of writes of every element."""
+    writes = [np.zeros(b.shape, np.int64) for b in bufs]
+    for kind, s, t, row0, col0, r_end, c_end in _walk(table):
+        if kind == "exit":
+            continue
+        r = row0 + np.arange(r_end)
+        c = col0 + np.arange(c_end)
+        val = np.zeros((r_end, c_end), np.float32)
+        if kind == "live":
+            k = np.arange(t.depth)
+            rr = np.minimum(r, t.rows - 1)
+            x = bufs[t.x][t.x_off + rr[:, None] * t.ldx + k[None, :]]
+            w = bufs[s.w][s.w_off + k[:, None] * s.ldw + c[None, :]]
+            val = np.where((r < t.rows)[:, None], x @ w, 0.0)
+        idx = s.out_off + r[:, None] * s.ldo + c[None, :]
+        bufs[s.out][idx] = val
+        writes[s.out][idx] += 1
+    return writes
+
+
+def _flat(a: np.ndarray, dtype: str) -> np.ndarray:
+    """``a`` rounded to ``dtype`` as the kernel reads it, as flat float32."""
+    return torch.from_numpy(a).to(getattr(torch, dtype)).float().numpy().ravel()
+
+
+class TestLaunchTable:
+    @pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize(
+        "shape, blocks",
+        [((3, 256, 384, 384), (128, 128, 128)), ((4, 192, 96, 288), (64, 32, 96))],
+    )
+    def test_stacked_table_matches_jax(self, shape, blocks, dtype, grid_mode):
+        E, T, K, N = shape
+        bt, bk, bn = blocks
+        rng = np.random.default_rng(E)
+        vt = rng.integers(0, T + 1, E)
+        vk = rng.integers(0, K + 1, E)
+        vt[0], vk[0] = T, K  # one tenant whose blocks are all live
+        xs, w, owner, vt, vk = _mk_int(E, E, T, K, N, N // bn, vt, vk)
+        xs += rng.standard_normal(xs.shape, dtype=np.float32) * (xs != 0)
+        kw = dict(block_t=bt, block_k=bk, block_n=bn)
+        table = stacked_table(
+            (E, T, K), N, *_ints(owner, vt, vk), bn, grid_mode == "dense"
+        )
+        bufs = [_flat(xs, dtype), _flat(w, dtype), np.full(T * N, np.nan, np.float32)]
+        writes = _interpret(table, bufs)
+        np.testing.assert_array_equal(writes[2], 1)
+        jxs, _ = _both(xs, dtype)
+        jw, _ = _both(w, dtype)
+        jargs = [jnp.asarray(a) for a in (owner, vt, vk)]
+        want = jax_pm(jxs, jw, *jargs, grid_mode=grid_mode, interpret=True, **kw)
+        got = bufs[2].reshape(T, N)
+        np.testing.assert_allclose(got, np.asarray(want), **TOL[dtype])
+
+    # the heavy workload's unaligned depths (363, 147, 153) and N = 100
+    SHAPES = [(70, 363, 100), (130, 147, 64), (20, 153, 100), (1, 9, 7)]
+
+    @pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_tenant_table_matches_jax(self, dtype, grid_mode):
+        xs, ws = _ragged_operands(11, self.SHAPES)
+        E = len(xs)
+        table = tenant_table(
+            tuple(self.SHAPES),
+            tuple(k for _, k, _ in self.SHAPES),
+            tuple(n for _, _, n in self.SHAPES),
+            grid_mode == "dense",
+        )
+        outs = [np.full(t * n, np.nan, np.float32) for t, _, n in self.SHAPES]
+        bufs = [_flat(x, dtype) for x in xs] + [_flat(w, dtype) for w in ws] + outs
+        writes = _interpret(table, bufs)
+        jouts = jax_fused(
+            [jnp.asarray(x).astype(getattr(jnp, dtype)) for x in xs],
+            [jnp.asarray(w).astype(getattr(jnp, dtype)) for w in ws],
+            block_t=64,
+            block_k=64,
+            block_n=64,
+            grid_mode=grid_mode,
+            interpret=True,
+        )
+        for i, ((t, _, n), jo) in enumerate(zip(self.SHAPES, jouts)):
+            np.testing.assert_array_equal(writes[2 * E + i], 1)
+            got = bufs[2 * E + i].reshape(t, n)
+            np.testing.assert_allclose(got, np.asarray(jo), **TOL[dtype])
+        assert all(not w.any() for w in writes[: 2 * E])  # inputs never written
+
+    def test_zero_depth_tenant_gets_zeros_and_no_live_tile(self):
+        shapes = ((100, 0, 70), (64, 8, 64))
+        table = tenant_table(shapes, (0, 8), (70, 64), False)
+        kinds = [(kind, s.tenant) for kind, s, *_ in _walk(table)]
+        assert ("live", 0) not in kinds and ("zero", 0) in kinds
+        x1 = np.ones(64 * 8, np.float32)
+        w1 = np.ones(8 * 64, np.float32)
+        bufs = [np.zeros(0, np.float32), x1, np.zeros(0, np.float32), w1]
+        bufs += [np.full(100 * 70, np.nan, np.float32), np.zeros(64 * 64, np.float32)]
+        writes = _interpret(table, bufs)
+        np.testing.assert_array_equal(writes[4], 1)
+        np.testing.assert_array_equal(bufs[4], 0.0)
+        np.testing.assert_array_equal(bufs[5], 8.0)
+
+    def test_segments_run_deepest_tenant_first(self):
+        shapes = ((64, 10, 64), (64, 500, 64), (64, 90, 64))
+        table = tenant_table(shapes, (10, 500, 90), (64,) * 3, False)
+        assert [s.tenant for s in table.segments] == [1, 2, 0]
+        assert table.first == (0, 1, 2) and table.grid == 3
+
+    @pytest.mark.parametrize("what", ["tenants", "segments"])
+    def test_capacity_is_checked(self, what):
+        n = (MAX_TENANTS if what == "tenants" else MAX_SEGMENTS) + 1
+        if what == "tenants":
+            with pytest.raises(ValueError, match="MAX_TENANTS"):
+                tenant_table(((1, 1, 1),) * n, (1,) * n, (1,) * n, False)
+        else:
+            owner = tuple(i % 2 for i in range(n))  # one segment a block
+            with pytest.raises(ValueError, match="MAX_SEGMENTS"):
+                stacked_table((2, 64, 64), 64 * n, owner, (64, 64), (64, 64), 64, True)
 
 
 def _bench_mixes():
