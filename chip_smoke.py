@@ -30,6 +30,15 @@ check:
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
    decode step is also checked against the CPU on the smoke config.
+4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
+   for each of the nine registered policies on the paper's heavy and light
+   workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
+   launches no kernel: the launch counters are zeroed before it and must
+   read zero after it.  ``equal`` must reproduce the golden seed traces
+   ``tests/data/seed_trace_{heavy,light}.json`` hex for hex, and every
+   policy must beat the sequential baseline on makespan or on turnaround.
+   One line per run: policy, workload, savings, makespan and host wall ms
+   (cost-model caches cleared before each run, so each is a cold run).
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -60,6 +69,19 @@ DTYPES = ("float32", "bfloat16")
 MODES = ("dense", "compact")
 ENQUEUE_CALLS = 50  # calls timed on the host clock without a synchronise
 KERNEL_FILE = "src/repro_torch/kernels/csrc/partitioned_matmul.cu"
+PAPER_WORKLOADS = ("heavy", "light")
+PAPER_POLICIES = [
+    "best_fit",
+    "deadline_preempt",
+    "drf",
+    "equal",
+    "min_cost_flow",
+    "moca",
+    "priority",
+    "proportional",
+    "width_aware",
+]
+GOLDEN = "tests/data/seed_trace_{}.json"
 TPU_KERNEL = {
     "dense": "src/repro/kernels/partitioned_matmul.py:261",
     "compact": "src/repro/kernels/partitioned_matmul.py:335",
@@ -570,6 +592,75 @@ def serving_phase(torch) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------------------
+# 4. the paper's front door
+# ---------------------------------------------------------------------------
+
+
+def check_golden(res, path: Path) -> None:
+    """``equal``'s dynamic schedule against a golden trace, hex for hex."""
+    golden = json.loads(path.read_text())
+    dyn = res.partitioned
+    check(dyn.makespan.hex() == golden["makespan"], f"{path.name}: makespan")
+    completion = {k: v.hex() for k, v in dyn.completion.items()}
+    check(completion == golden["completion"], f"{path.name}: completion")
+    check(len(dyn.trace) == len(golden["trace"]), f"{path.name}: trace length")
+    for e, g in zip(dyn.trace, golden["trace"]):
+        got = (e.tenant, e.layer_index, e.partition.col_start, e.partition.cols)
+        want = (g["tenant"], g["layer_index"], g["col_start"], g["cols"])
+        times = (e.start, e.end, e.compute_start, e.compute_end)
+        keys = ("start", "end", "compute_start", "compute_end")
+        check(got == want, f"{path.name}: {got} != {want}")
+        check([t.hex() for t in times] == [g[k] for k in keys], f"{path.name}: {got}")
+
+
+def paper_phase(K) -> list[dict]:
+    from repro_torch.api import Session, list_backends, list_policies
+    from repro_torch.core.dataflow import ws_cost_cache_clear
+    from repro_torch.sim.systolic import _BatchTimeOracle, layer_cost
+
+    check(list_policies() == PAPER_POLICIES, f"policies: {list_policies()}")
+    check(list_backends() == ["sim"], f"backends: {list_backends()}")
+    root = Path(__file__).resolve().parent
+    K.reset_launch_counts()
+    rows = []
+    for workload in PAPER_WORKLOADS:
+        for policy in PAPER_POLICIES:
+            ws_cost_cache_clear()
+            layer_cost.cache_clear()
+            _BatchTimeOracle.clear_all()
+            t0 = time.perf_counter()
+            res = Session(policy, "sim").run(workload)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            what = f"paper {policy}/{workload}"
+            check(res.policy == policy and res.backend == "sim", what)
+            done = res.partitioned.completion
+            check(set(done) == set(res.baseline.completion), f"{what}: tenants")
+            check(all(0.0 < t < float("inf") for t in done.values()), f"{what}: times")
+            check(
+                res.turnaround_saving > 0 or res.time_saving > 0,
+                f"{what}: does not beat sequential",
+            )
+            if policy == "equal":
+                check_golden(res, root / GOLDEN.format(workload))
+            row = {
+                "policy": policy,
+                "workload": workload,
+                "time_saving": res.time_saving,
+                "turnaround_saving": res.turnaround_saving,
+                "energy_saving": res.energy_saving,
+                "makespan_s": res.partitioned.makespan,
+                "baseline_makespan_s": res.baseline.makespan,
+                "wall_ms": wall_ms,
+            }
+            log(f"paper: {json.dumps(row)}")
+            rows.append(row)
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the paper path launched kernels: {launches}")
+    log(f"paper: {len(rows)} runs, equal matches both golden traces, {launches}")
+    return rows
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -591,6 +682,7 @@ def main() -> int:
     details = build_details(_build)
     kernels = kernel_phase(torch, K, details)
     serving_phase(torch)
+    paper_phase(K)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

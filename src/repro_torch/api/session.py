@@ -1,0 +1,230 @@
+"""``Session`` — the port's front door, as ``repro.api.session`` is the JAX
+package's.
+
+    from repro_torch.api import Session
+
+    res = Session(policy="equal", backend="sim").run("heavy")
+    print(res.time_saving, res.energy_saving, res.partition_histogram())
+
+A Session binds one :class:`~repro_torch.api.policy.PartitionPolicy` to one
+:class:`~repro_torch.api.backend.Accelerator` backend, runs a workload (a
+name from ``repro_torch.sim.workloads.WORKLOADS`` or a ``Sequence[DNNG]``)
+under dynamic partitioning, and — unless ``compare_baseline=False`` — also
+runs the sequential single-tenancy baseline so savings can be reported.
+Open-loop serving (``serve``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import Counter
+from typing import Optional, Sequence
+
+from repro_torch.api.backend import Accelerator, EnergyReport, resolve_backend
+from repro_torch.api.policy import PartitionPolicy, resolve_policy
+from repro_torch.core.dnng import DNNG, LayerShape
+from repro_torch.core.scheduler import (
+    ScheduleResult,
+    schedule_dynamic,
+    schedule_sequential,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineRun:
+    """A sequential single-tenancy run of one workload on one backend.
+
+    Policy-independent, so one instance can be shared across every policy's
+    :meth:`Session.run` on the same workload; sharing is validated by
+    workload name, DNNG set, array geometry and backend name.
+    """
+
+    workload: str
+    schedule: ScheduleResult
+    energy: Optional[EnergyReport] = None
+    backend: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class SessionResult:
+    """One workload run: dynamic-partitioned schedule vs (optionally) the
+    sequential baseline, with backend energy accounting when available."""
+
+    workload: str
+    policy: str
+    backend: str
+    partitioned: ScheduleResult
+    baseline: Optional[ScheduleResult] = None
+    partitioned_energy: Optional[EnergyReport] = None
+    baseline_energy: Optional[EnergyReport] = None
+
+    # -- headline metrics (Fig. 9) ----------------------------------------
+    @property
+    def time_saving(self) -> float:
+        """Fractional makespan reduction vs the sequential baseline."""
+        if self.baseline is None or self.baseline.makespan == 0:
+            return 0.0
+        return 1.0 - self.partitioned.makespan / self.baseline.makespan
+
+    @property
+    def turnaround_saving(self) -> float:
+        """Fractional mean per-DNN completion-time reduction."""
+        if self.baseline is None:
+            return 0.0
+        bsum = sum(self.baseline.completion.values())
+        psum = sum(self.partitioned.completion.values())
+        return 1.0 - psum / bsum if bsum else 0.0
+
+    @property
+    def energy_saving(self) -> float:
+        if self.baseline_energy is None or self.partitioned_energy is None:
+            return 0.0
+        return 1.0 - self.partitioned_energy.total / self.baseline_energy.total
+
+    @property
+    def utilization(self) -> float:
+        return self.partitioned.utilization
+
+    def partition_histogram(self) -> dict[str, int]:
+        """How many layers ran on each partition width (Fig. 9 c,d)."""
+        c = Counter(
+            f"{e.partition.rows}x{e.partition.cols}" for e in self.partitioned.trace
+        )
+        return dict(sorted(c.items()))
+
+    def as_dict(self) -> dict:
+        """Machine-readable summary (the JAX package's BENCH_fig9 row)."""
+        return {
+            "workload": self.workload,
+            "policy": self.policy,
+            "backend": self.backend,
+            "makespan_s": self.partitioned.makespan,
+            "baseline_makespan_s": self.baseline.makespan if self.baseline else None,
+            "time_saving": self.time_saving,
+            "turnaround_saving": self.turnaround_saving,
+            "energy_saving": self.energy_saving,
+            "utilization": self.utilization,
+            "partition_histogram": self.partition_histogram(),
+        }
+
+
+def _name_of(obj) -> str:
+    return getattr(obj, "name", type(obj).__name__)
+
+
+class Session:
+    """Bind a policy to a backend; run workloads by name or as DNNG lists."""
+
+    def __init__(
+        self,
+        policy: "str | PartitionPolicy" = "equal",
+        backend: "str | Accelerator" = "sim",
+        **backend_kwargs,
+    ):
+        self.policy = resolve_policy(policy)
+        self.backend = resolve_backend(backend, **backend_kwargs)
+
+    # -- workload resolution ------------------------------------------------
+    @staticmethod
+    def _resolve_workload(workload) -> tuple[str, list[DNNG]]:
+        if isinstance(workload, str):
+            # read at call time so ablations may patch WORKLOADS
+            from repro_torch.sim import workloads as _w
+
+            if workload not in _w.WORKLOADS:
+                raise ValueError(
+                    f"unknown workload {workload!r}; known: {sorted(_w.WORKLOADS)}"
+                )
+            return workload, list(_w.WORKLOADS[workload]())
+        dnngs = list(workload)
+        if not all(isinstance(g, DNNG) for g in dnngs):
+            raise ValueError("workload must be a name or a sequence of DNNGs")
+        return "custom", dnngs
+
+    @staticmethod
+    def _layers_by_key(dnngs: Sequence[DNNG]) -> dict[tuple[str, int], LayerShape]:
+        return {(g.name, i): layer for g in dnngs for i, layer in enumerate(g.layers)}
+
+    # -- execution ----------------------------------------------------------
+    def run_baseline(self, workload) -> BaselineRun:
+        """Sequential single-tenancy run only — policy-independent, so the
+        result can be passed as ``baseline=`` to several :meth:`run` calls
+        on the same workload."""
+        name, dnngs = self._resolve_workload(workload)
+        base = schedule_sequential(
+            dnngs,
+            self.backend.array,
+            self.backend.time_fn(),
+            stage=self.backend.stage_model(),
+        )
+        e_base = self.backend.energy(base, self._layers_by_key(dnngs), baseline_pe=True)
+        return BaselineRun(
+            workload=name, schedule=base, energy=e_base, backend=_name_of(self.backend)
+        )
+
+    def run(
+        self,
+        workload,
+        *,
+        compare_baseline: bool = True,
+        baseline: Optional[BaselineRun] = None,
+    ) -> SessionResult:
+        name, dnngs = self._resolve_workload(workload)
+        time_fn = self.backend.time_fn()
+        stage = self.backend.stage_model()
+        layers = self._layers_by_key(dnngs)
+
+        part = schedule_dynamic(
+            dnngs, self.backend.array, time_fn, stage=stage, policy=self.policy
+        )
+        e_part = self.backend.energy(part, layers, baseline_pe=False)
+        base = e_base = None
+        if baseline is not None:
+            self._check_baseline(baseline, name, dnngs)
+            base, e_base = baseline.schedule, baseline.energy
+        elif compare_baseline:
+            base = schedule_sequential(dnngs, self.backend.array, time_fn, stage=stage)
+            e_base = self.backend.energy(base, layers, baseline_pe=True)
+        return SessionResult(
+            workload=name,
+            policy=_name_of(self.policy),
+            backend=_name_of(self.backend),
+            partitioned=part,
+            baseline=base,
+            partitioned_energy=e_part,
+            baseline_energy=e_base,
+        )
+
+    def _check_baseline(
+        self, baseline: BaselineRun, name: str, dnngs: Sequence[DNNG]
+    ) -> None:
+        """A shared baseline must cover this workload on this backend:
+        every explicit DNNG sequence is "custom", so the name alone is not
+        enough."""
+        if baseline.workload != name:
+            raise ValueError(
+                f"baseline is for workload {baseline.workload!r}, not {name!r}"
+            )
+        if set(baseline.schedule.completion) != {g.name for g in dnngs}:
+            raise ValueError(
+                f"baseline covers DNNGs {sorted(baseline.schedule.completion)}, "
+                f"workload has {sorted(g.name for g in dnngs)}"
+            )
+        if baseline.schedule.array != self.backend.array:
+            raise ValueError(
+                f"baseline ran on array {baseline.schedule.array}, "
+                f"backend has {self.backend.array}"
+            )
+        mine = _name_of(self.backend)
+        if baseline.backend and baseline.backend != mine:
+            raise ValueError(
+                f"baseline ran on backend {baseline.backend!r}, not {mine!r}"
+            )
+
+    def serve(self, arrivals, **kwargs):
+        """Open-loop serving is not ported yet."""
+        raise NotImplementedError(
+            "Session.serve is not ported yet: ROADMAP.md, 'Modules to port', "
+            "item 1 (ServeConfig, Session.serve, traffic, fairness accounting, "
+            "chaos, overload, obs)"
+        )

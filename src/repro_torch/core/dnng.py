@@ -1,9 +1,10 @@
 """Deep Neural Network Graph (DNNG) — the paper's workload abstraction (§2.1).
 
-The port's own copy of what ``repro.core.dnng`` holds for the Table-1
-workloads: a layer's 9 shape parameters ``{M, N, C, R, S, H, W, P, Q}``
-(paper Eq. 1), its GEMM lowering for the weight-stationary array, and the
-linear-chain graph of layers.
+The port's own copy of ``repro.core.dnng``.  A DNNG is a weighted DAG
+``G(V, E)`` whose vertices are layers and whose edges encode execution
+precedence.  Each layer carries the 9 shape parameters
+``{M, N, C, R, S, H, W, P, Q}`` (paper Eq. 1); ``Opr(l) = M·N·C·R·S·H·W``
+(paper Eq. 2) is the priority key of Algorithm 1's Task_Assignment.
 
 Every layer lowers to a GEMM:
 
@@ -17,7 +18,27 @@ steps folded into N.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterator, Sequence
+
+
+@functools.lru_cache(maxsize=4096)
+def _chain_edges(n_layers: int) -> tuple[tuple[int, int], ...]:
+    """Edge list of the default linear chain (shared across the per-job
+    DNNG clones an open-loop traffic generator stamps out)."""
+    return tuple((i, i + 1) for i in range(n_layers - 1))
+
+
+@functools.lru_cache(maxsize=4096)
+def _pred_table(
+    edges: tuple[tuple[int, int], ...], n_layers: int
+) -> tuple[tuple[int, ...], ...]:
+    """Predecessor indices per layer, precomputed once per graph shape (the
+    scheduler's readiness lookup)."""
+    preds: list[list[int]] = [[] for _ in range(n_layers)]
+    for s, d in edges:
+        preds[d].append(s)
+    return tuple(tuple(p) for p in preds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +62,39 @@ class LayerShape:
             if not isinstance(v, int) or v < 1:
                 raise ValueError(f"LayerShape.{f} must be a positive int, got {v!r}")
 
+    def __hash__(self) -> int:
+        # memoized: LayerShape keys every cost-oracle memo, and the
+        # generated dataclass hash re-tuples all 10 fields per lookup.
+        # Frozen blocks setattr but not __dict__ writes; equal instances
+        # hash equal because the memo comes from the field tuple eq compares.
+        h = self.__dict__.get("_hash")
+        if h is None:
+            self.__dict__["_hash"] = h = hash(
+                (
+                    self.M,
+                    self.N,
+                    self.C,
+                    self.R,
+                    self.S,
+                    self.H,
+                    self.W,
+                    self.P,
+                    self.Q,
+                    self.name,
+                )
+            )
+        return h
+
+    @property
+    def opr(self) -> int:
+        """Paper Eq. 2, ``Opr(l) = M·N·C·R·S·H·W`` (input spatial H·W, as the
+        paper writes it); memoized like ``__hash__``."""
+        v = self.__dict__.get("_opr")
+        if v is None:
+            v = self.M * self.N * self.C * self.R * self.S * self.H * self.W
+            self.__dict__["_opr"] = v
+        return v
+
     @property
     def macs(self) -> int:
         """Exact MAC count of the lowered GEMM: M·N·C·R·S·P·Q."""
@@ -60,6 +114,18 @@ class LayerShape:
     def gemm_m(self) -> int:
         """Streamed dim = N·P·Q (rows of im2col input fed through the array)."""
         return self.N * self.P * self.Q
+
+    @property
+    def weight_bytes(self) -> int:
+        return 2 * self.gemm_k * self.gemm_n  # bf16/int16 as in Scale-Sim configs
+
+    @property
+    def ifmap_elems(self) -> int:
+        return self.N * self.C * self.H * self.W
+
+    @property
+    def ofmap_elems(self) -> int:
+        return self.N * self.M * self.P * self.Q
 
     @staticmethod
     def conv(
@@ -123,20 +189,98 @@ class LayerShape:
 
 @dataclasses.dataclass(frozen=True)
 class DNNG:
-    """A DNN graph: a named chain of layers with an arrival time (§2.1)."""
+    """A DNN graph: a named chain/DAG of layers with an arrival time (§2.1).
+
+    ``edges`` holds (src, dst) layer-index pairs; None is the linear chain,
+    which all the paper's workloads are.  ``arrival_time`` follows the
+    simulator's clock.
+    """
 
     name: str
     layers: tuple[LayerShape, ...]
     arrival_time: float = 0.0
+    edges: tuple[tuple[int, int], ...] | None = None
 
     def __post_init__(self) -> None:
         if not self.layers:
             raise ValueError(f"DNNG {self.name!r} has no layers")
+        n = len(self.layers)
+        if self.edges is not None:
+            for s, d in self.edges:
+                if not (0 <= s < n and 0 <= d < n):
+                    raise ValueError(f"edge ({s},{d}) out of range for {n} layers")
+                if s >= d:
+                    raise ValueError(f"edge ({s},{d}) violates topological order")
+
+    @property
+    def edge_list(self) -> tuple[tuple[int, int], ...]:
+        if self.edges is not None:
+            return self.edges
+        return _chain_edges(len(self.layers))
+
+    @property
+    def pred_table(self) -> tuple[tuple[int, ...], ...]:
+        """Predecessors per layer index, cached per graph shape."""
+        return _pred_table(self.edge_list, len(self.layers))
+
+    def predecessors(self, idx: int) -> list[int]:
+        return list(self.pred_table[idx])
+
+    def successors(self, idx: int) -> list[int]:
+        return [d for s, d in self.edge_list if s == idx]
+
+    def roots(self) -> list[int]:
+        """Layers with no predecessors (ready at arrival)."""
+        dsts = {d for _, d in self.edge_list}
+        return [i for i in range(len(self.layers)) if i not in dsts]
+
+    def clone(
+        self, name: str | None = None, arrival_time: float | None = None
+    ) -> "DNNG":
+        """Re-stamp a validated graph with a new name / arrival, skipping
+        ``dataclasses.replace``'s re-validation (layers and edges are
+        shared, already-validated objects)."""
+        g = object.__new__(DNNG)
+        d = g.__dict__
+        d["name"] = self.name if name is None else name
+        d["layers"] = self.layers
+        d["arrival_time"] = self.arrival_time if arrival_time is None else arrival_time
+        d["edges"] = self.edges
+        return g
+
+    @property
+    def total_macs(self) -> int:
+        return sum(layer.macs for layer in self.layers)
+
+    @property
+    def total_opr(self) -> int:
+        return sum(layer.opr for layer in self.layers)
 
     def __iter__(self) -> Iterator[LayerShape]:
         return iter(self.layers)
+
+    def __len__(self) -> int:
+        return len(self.layers)
 
 
 def chain(name: str, layers: Sequence[LayerShape], arrival_time: float = 0.0) -> DNNG:
     """Convenience constructor for the (ubiquitous) linear-chain DNNG."""
     return DNNG(name=name, layers=tuple(layers), arrival_time=arrival_time)
+
+
+def validate_dag(g: DNNG) -> bool:
+    """The edge list must be acyclic and topologically sorted."""
+    seen: set[int] = set()
+    for s, d in g.edge_list:
+        if d in seen and s not in seen:
+            return False
+        seen.add(s)
+        seen.add(d)
+    return all(s < d for s, d in g.edge_list)
+
+
+def estimated_execution_time(g: DNNG, macs_per_cycle: float) -> float:
+    """E_t estimate of Algorithm 1 line 8 (coarse: MACs / throughput)."""
+    if macs_per_cycle <= 0:
+        raise ValueError("macs_per_cycle must be positive")
+    return g.total_macs / macs_per_cycle

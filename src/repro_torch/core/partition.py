@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional
+from typing import Optional, Sequence
+
+from repro_torch.core.dnng import LayerShape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +85,43 @@ def partition_calculation(array: ArrayShape, n_available: int) -> list[Partition
     return parts
 
 
+@dataclasses.dataclass(frozen=True)
+class Assignment:
+    """One Task_Assignment result: a ready layer bound to a partition."""
+
+    tenant: str  # DNNG name
+    layer_index: int
+    layer: LayerShape
+    partition: Partition
+
+
+def task_assignment(
+    ready: Sequence[tuple[str, int, LayerShape]],
+    partitions: Sequence[Partition],
+) -> list[Assignment]:
+    """Fig. 5 lines 20–27: heaviest layer (by ``Opr``) → largest partition.
+
+    ``ready`` holds (tenant, layer_index, layer) tuples.  Returns one
+    :class:`Assignment` per matched (layer, partition) pair; extra layers or
+    extra partitions are left unmatched — the scheduler re-runs on the next
+    event.
+    """
+    if len(ready) == 1 and len(partitions) == 1:
+        # one waiting layer, one merged free slice: no sorts needed
+        tenant, idx, layer = ready[0]
+        return [
+            Assignment(
+                tenant=tenant, layer_index=idx, layer=layer, partition=partitions[0]
+            )
+        ]
+    layers = sorted(ready, key=lambda t: t[2].opr, reverse=True)
+    parts = sorted(partitions, key=lambda p: p.n_pes, reverse=True)
+    return [
+        Assignment(tenant=tenant, layer_index=idx, layer=layer, partition=part)
+        for (tenant, idx, layer), part in zip(layers, parts)
+    ]
+
+
 class PartitionSet:
     """Mutable free/busy column-interval state with merge-on-free (§3.3).
 
@@ -106,6 +145,12 @@ class PartitionSet:
     @property
     def busy_partitions(self) -> dict[str, Partition]:
         return dict(self._busy)
+
+    def busy_view(self) -> dict[str, Partition]:
+        """The live tenant→partition mapping, without the copy of
+        :attr:`busy_partitions`.  Read-only by contract: the scheduler hands
+        it to policy contexts once per rebalance round."""
+        return self._busy
 
     def largest_free(self) -> Optional[Partition]:
         return max(self._free, key=lambda p: p.n_pes, default=None)

@@ -281,3 +281,72 @@ def light_workload(stagger_s: float = 2e-6) -> list[DNNG]:
     """Table 1, group 2 — RNN light load."""
     models = [melody_lstm, google_translate, deep_voice, handwriting_lstm]
     return _stagger([m() for m in models], stagger_s)
+
+
+WORKLOADS = {
+    "heavy": heavy_workload,
+    "light": light_workload,
+}
+
+# Table-1 models individually, for per-job sampling: each arrival picks ONE
+# model from a pool instead of replaying the whole closed workload
+MODELS = {
+    "AlexNet": alexnet,
+    "ResNet50": resnet50,
+    "GoogleNet": googlenet,
+    "SA_CNN": sa_cnn,
+    "SA_LSTM": sa_lstm,
+    "NCF": ncf,
+    "AlphaGoZero": alphagozero,
+    "Transformer": transformer,
+    "MelodyLSTM": melody_lstm,
+    "GoogleTranslate": google_translate,
+    "DeepVoice": deep_voice,
+    "HandwritingLSTM": handwriting_lstm,
+}
+
+MODEL_POOLS = {
+    "heavy": (
+        "AlexNet",
+        "ResNet50",
+        "GoogleNet",
+        "SA_CNN",
+        "SA_LSTM",
+        "NCF",
+        "AlphaGoZero",
+        "Transformer",
+    ),
+    "light": ("MelodyLSTM", "GoogleTranslate", "DeepVoice", "HandwritingLSTM"),
+    "all": tuple(MODELS),
+}
+
+
+_TEMPLATES: dict = {}
+
+
+def _model_template(model: str) -> DNNG:
+    """Memoized Table-1 template (model constructors are pure).  Clones
+    share the frozen layer tuple, so all jobs of one model share the cost
+    oracles' cache entries.  Keyed by the constructor object, so a patched
+    ``MODELS`` misses the cache as it should."""
+    fn = MODELS[model]
+    g = _TEMPLATES.get(fn)
+    if g is None:
+        g = _TEMPLATES[fn] = fn()
+    return g
+
+
+def sample_dnng(
+    rng, pool: str = "all", name: str | None = None, arrival_time: float = 0.0
+) -> DNNG:
+    """One fresh Table-1 DNNG for an arriving job.
+
+    ``rng`` is a seeded generator with a ``choice`` method (``random.Random``
+    or ``np.random.Generator``); ``pool`` selects the sampling universe
+    (``MODEL_POOLS``); ``name`` overrides the tenant name so concurrent jobs
+    of one model stay distinct in the scheduler.
+    """
+    if pool not in MODEL_POOLS:
+        raise ValueError(f"unknown pool {pool!r}; known: {sorted(MODEL_POOLS)}")
+    model = rng.choice(MODEL_POOLS[pool])
+    return _model_template(model).clone(name=name, arrival_time=arrival_time)

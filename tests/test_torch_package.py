@@ -2,6 +2,8 @@
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -39,10 +41,56 @@ def _forbidden(path):
     return bad
 
 
+# the paper path's modules: host Python + NumPy, no kernel
+PAPER_PATH = [
+    "api/backend.py",
+    "api/policy.py",
+    "api/session.py",
+    "core/dataflow.py",
+    "core/dnng.py",
+    "core/partition.py",
+    "core/scheduler.py",
+    "fairness/__init__.py",
+    "fairness/drf.py",
+    "fairness/flow.py",
+    "sim/energy.py",
+    "sim/runner.py",
+    "sim/systolic.py",
+    "sim/workloads.py",
+]
+
+
 def test_scan_sees_every_module():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    assert len(files) >= 20
+    for rel in PAPER_PATH:
+        assert os.path.join(PORT, *rel.split("/")) in files, rel
+    assert len(files) >= 34
+
+
+def test_front_door_imports_no_jax_and_no_repro():
+    """In a fresh interpreter, the front door runs a workload without
+    pulling ``jax`` or any ``repro`` module into ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.api\n"
+        "from repro_torch.api import Session\n"
+        "res = Session('equal').run('light')\n"
+        "assert res.partitioned.makespan > 0\n"
+        "assert len(repro_torch.api.list_policies()) == 9\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True,
+        text=True,
+        env=env,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

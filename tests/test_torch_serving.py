@@ -38,6 +38,18 @@ CFG = get("llama3.2-3b").smoke
 JPARAMS = [jax_init_params(JCFG, jax.random.key(i)) for i in range(2)]
 PARAMS = [params_from_jax(jax.tree.map(np.asarray, p), device="cpu") for p in JPARAMS]
 RTOL = ATOL = 3e-2
+# the JAX registry's policies, every one of them ported
+ALL_POLICIES = [
+    "equal",
+    "proportional",
+    "best_fit",
+    "deadline_preempt",
+    "drf",
+    "min_cost_flow",
+    "moca",
+    "priority",
+    "width_aware",
+]
 
 
 class _FakeMesh:
@@ -265,8 +277,10 @@ class TestEngineFaultPath:
 
 
 def test_unknown_policy_lists_the_ported_ones():
-    with pytest.raises(ValueError, match="equal.*proportional"):
-        TenantMeshManager(device_grid("cpu", 2), policy="moca").rebalance()
+    # every policy of the JAX registry is ported, so the listing names all
+    # nine; an unregistered name still raises
+    with pytest.raises(ValueError, match=".*".join(sorted(ALL_POLICIES))):
+        TenantMeshManager(device_grid("cpu", 2), policy="nonesuch").rebalance()
 
 
 class TestTenancyParity:
@@ -310,7 +324,7 @@ class TestTenancyParity:
             assert sets[0].utilization == sets[1].utilization
             sets[0].check()
 
-    @pytest.mark.parametrize("policy", ["equal", "proportional"])
+    @pytest.mark.parametrize("policy", ALL_POLICIES)
     @pytest.mark.parametrize("seed", range(4))
     def test_policy_widths_and_order_match_jax(self, policy, seed):
         from repro.api import policy as J
@@ -331,7 +345,7 @@ class TestTenancyParity:
             order = [t.name for t in mine.order(md)]
             assert order == [t.name for t in theirs.order(jd)]
 
-    @pytest.mark.parametrize("policy", ["equal", "proportional"])
+    @pytest.mark.parametrize("policy", ALL_POLICIES)
     @pytest.mark.parametrize("seed", range(3))
     def test_manager_scripts_match_jax(self, policy, seed):
         rng = np.random.default_rng(seed)
