@@ -39,6 +39,27 @@ check:
    policy must beat the sequential baseline on makespan or on turnaround.
    One line per run: policy, workload, savings, makespan and host wall ms
    (cost-model caches cleared before each run, so each is a cold run).
+5. Serve: open-loop serving, ``repro_torch.traffic`` (``Session.serve``,
+   ``TrafficSimulator``, ``ShardedTrafficSimulator``), in a fresh child
+   interpreter with the card hidden from it: the sharded cell forks its
+   pods, and a fork of this process, which holds CUDA state and threads,
+   is unsafe.  The child runs ``benchmarks/traffic_bench.py``'s
+   matrix and its jsq/p2c cluster block, one run per armed feature
+   (preemption, memory contention, migration, fairness accounting),
+   ``benchmarks/scale_bench.py``'s 10,000-job, 64-array cell and the
+   100,000-job, 256-array, 8-pod forked cell of ``BENCH_fairness.json``.
+   Every seeded field of every run must equal ``tests/data/serve_golden.json``
+   (made from the JAX package, ``tests/test_torch_traffic.py``), and the
+   path must launch no kernel.  Wall time, events/s and jobs/s are printed.
+   The child, and every pipe read of the pods, has a time limit.
+6. Mesh: the ``mesh`` backend's constants measured on the card beside
+   ``MeshLatencyModel()``'s defaults (each must lie within 2x of its
+   default): the bf16 rate of ``fused_tenant_gemm`` on the heavy_max round
+   in device time, the calls queued behind a spin kernel so that the host
+   is out of the timing (``torch.matmul``'s beside it), a pinned 256 MiB
+   host-to-device copy, and the host enqueue of a one-tenant
+   ``fused_tenant_gemm`` call (a one-element ``add_`` beside it); then
+   ``Session(policy, "mesh").run(workload)`` for every policy and workload.
 
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
@@ -47,7 +68,11 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import importlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -82,6 +107,22 @@ PAPER_POLICIES = [
     "width_aware",
 ]
 GOLDEN = "tests/data/seed_trace_{}.json"
+SERVE_GOLDEN = "tests/data/serve_golden.json"
+SERVE_FLAG = "--serve-phase"  # the child process of the serve phase
+SERVE_TIMEOUT_S = 600  # the whole serve phase, child included
+POD_TIMEOUT_S = 300.0  # any one pipe read of a sharded pod
+SEED = 0
+# benchmarks/traffic_bench.py's matrix
+TRAFFIC_PROCESSES = ("poisson", "mmpp", "diurnal")
+TRAFFIC_POLICIES = ("equal", "proportional", "best_fit", "width_aware")
+TRAFFIC_LOADS = (0.4, 0.9, 1.5)
+TRAFFIC_JOBS = 40
+SCALE_CELL = (10_000, 64)  # scale_bench.py's largest cell: jobs, arrays
+SHARDED_CELL = (100_000, 256, 8)  # BENCH_fairness.json: jobs, arrays, pods
+MESH_TOLERANCE = 2.0  # a measured constant this far off its default fails
+MESH_REPEATS = 7
+SPIN_CYCLES = 20_000_000  # a spin kernel that holds the stream for ~10 ms
+H2D_BYTES = 256 << 20
 TPU_KERNEL = {
     "dense": "src/repro/kernels/partitioned_matmul.py:261",
     "compact": "src/repro/kernels/partitioned_matmul.py:335",
@@ -620,7 +661,7 @@ def paper_phase(K) -> list[dict]:
     from repro_torch.sim.systolic import _BatchTimeOracle, layer_cost
 
     check(list_policies() == PAPER_POLICIES, f"policies: {list_policies()}")
-    check(list_backends() == ["sim"], f"backends: {list_backends()}")
+    check(list_backends() == ["mesh", "sim"], f"backends: {list_backends()}")
     root = Path(__file__).resolve().parent
     K.reset_launch_counts()
     rows = []
@@ -661,6 +702,468 @@ def paper_phase(K) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 5. serve: open-loop serving, host only
+# ---------------------------------------------------------------------------
+# The cells take the package's name, so the golden file can be made from the
+# JAX package by tests/test_torch_traffic.py with the same code; this script
+# only ever passes "repro_torch".
+
+
+def _mod(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def mean_service_s(pkg: str, pool: str) -> float:
+    """Mean full-array sequential time of one job of ``pool``: the load
+    normaliser of the benchmarks (rate = load / mean_service_s)."""
+    backend = _mod(pkg, "api").resolve_backend("sim")
+    w = _mod(pkg, "sim.workloads")
+    time_fn, stage = backend.time_fn(), backend.stage_model()
+    full = _mod(pkg, "core.partition").Partition(
+        rows=backend.array.rows, col_start=0, cols=backend.array.cols
+    )
+    times = []
+    for name in w.MODEL_POOLS[pool]:
+        g = w.MODELS[name]()
+        times.append(
+            sum(
+                stage.stage_in_s(ls) + time_fn(ls, full) + stage.stage_out_s(ls)
+                for ls in g.layers
+            )
+        )
+    return sum(times) / len(times)
+
+
+def _sha256(obj) -> str:
+    return hashlib.sha256(json.dumps(obj).encode()).hexdigest()
+
+
+def _row(res, **extra) -> dict:
+    """A run's seeded fields: ``as_dict()``, a digest of its records and,
+    where it kept them, of its schedules' trace events."""
+    row = {**extra, **res.as_dict()}
+    row["records_sha256"] = _sha256([dataclasses.astuple(r) for r in res.records])
+    if res.schedules is not None:
+        row["trace_sha256"] = _sha256(
+            [
+                [
+                    (e.tenant, e.layer_index, e.partition.col_start)
+                    + (e.partition.cols, e.start, e.end, e.compute_start)
+                    + (e.compute_end, e.fraction, e.resumed, e.preempted)
+                    for e in s.trace
+                ]
+                for s in res.schedules
+            ]
+        )
+    return row
+
+
+def traffic_cells(pkg: str) -> dict:
+    """``benchmarks/traffic_bench.py``: process x policy x load on one
+    array, then jsq vs p2c on four."""
+    T = _mod(pkg, "traffic")
+    svc = mean_service_s(pkg, "light")
+    slo = 4.0 * svc
+    rows = []
+    for proc in TRAFFIC_PROCESSES:
+        for load in TRAFFIC_LOADS:
+            rate = load / svc
+            arr = T.get_arrival_process(
+                proc,
+                rate=rate,
+                horizon=TRAFFIC_JOBS / rate,
+                seed=SEED,
+                pool="light",
+                slo_s=slo,
+            )
+            for pol in TRAFFIC_POLICIES:
+                res = T.TrafficSimulator(
+                    arr, policy=pol, max_concurrent=4, queue_cap=8, seed=SEED
+                ).run()
+                rows.append(_row(res, load=load, rate_jobs_per_s=rate, slo_s=slo))
+    n_arrays = 4
+    rate = n_arrays * 0.9 / svc
+    arr = T.get_arrival_process(
+        "poisson",
+        rate=rate,
+        horizon=n_arrays * TRAFFIC_JOBS / rate,
+        seed=SEED,
+        pool="light",
+        slo_s=slo,
+    )
+    cluster = []
+    for dispatch in ("jsq", "p2c"):
+        res = T.TrafficSimulator(
+            arr,
+            n_arrays=n_arrays,
+            dispatch=dispatch,
+            max_concurrent=4,
+            queue_cap=8,
+            seed=SEED,
+        ).run()
+        cluster.append(_row(res, load=0.9, rate_jobs_per_s=rate, slo_s=slo))
+    return {"traffic": rows, "cluster": cluster}
+
+
+def armed_cells(pkg: str) -> dict:
+    """One run per armed feature, each on its benchmark's heavy-pool cell:
+    preemption (``preempt_bench`` single array, with its trace), memory
+    contention (``moca_bench``, through a ``ServeConfig``), migration
+    (``preempt_bench`` fleet) and fairness (``fairness_bench``'s drf row)."""
+    T = _mod(pkg, "traffic")
+    api = _mod(pkg, "api")
+    svc = mean_service_s(pkg, "heavy")
+    out = {}
+    rate = 1.3 / svc
+    arr = T.get_arrival_process(
+        "mmpp",
+        rate=rate,
+        horizon=60 / rate,
+        seed=SEED,
+        pool="heavy",
+        slo_s=3.0 * svc,
+        burst_factor=6.0,
+    )
+    res = api.Session("deadline_preempt").serve(
+        arr,
+        max_concurrent=8,
+        queue_cap=8,
+        seed=SEED,
+        keep_trace=True,
+        preemption=True,
+    )
+    out["preempt"] = _row(res)
+    rate = 4 * 1.2 / svc
+    contention = _mod(pkg, "core.scheduler").ContentionModel(
+        window_s=1e-4, capacity=0.5
+    )
+    cfg = api.ServeConfig(
+        scheduling=api.SchedulingConfig(
+            n_arrays=4, dispatch="jsq", max_concurrent=4, queue_cap=8, seed=SEED
+        ),
+        memory=api.MemoryConfig(contention=contention),
+    )
+    res = api.Session("moca").serve(
+        "mmpp",
+        config=cfg,
+        rate=rate,
+        horizon=600 / rate,
+        pool="heavy",
+        slo_s=4.0 * svc,
+        tiers=(0, 1, 1),
+    )
+    out["moca"] = _row(res)
+    rate = 4 * 1.1 / svc
+    arr = T.get_arrival_process(
+        "mmpp",
+        rate=rate,
+        horizon=4 * 60 / rate,
+        seed=SEED,
+        pool="heavy",
+        slo_s=3.0 * svc,
+        burst_factor=6.0,
+    )
+    res = T.TrafficSimulator(
+        arr,
+        n_arrays=4,
+        max_concurrent=4,
+        queue_cap=8,
+        seed=SEED,
+        rebalance_interval=1e-3,
+    ).run()
+    out["migrate"] = _row(res)
+    rate = 4 * 0.9 / svc
+    res = T.serve(
+        "mmpp",
+        policy="drf",
+        n_arrays=4,
+        dispatch="jsq",
+        max_concurrent=4,
+        queue_cap=16,
+        seed=SEED,
+        fairness=True,
+        rate=rate,
+        horizon=400 / rate,
+        pool="heavy",
+        slo_s=6.0 * svc,
+        tiers=(0, 1),
+    )
+    out["fairness"] = _row(res)
+    return out
+
+
+def clear_cost_caches(pkg: str) -> None:
+    df = _mod(pkg, "core.dataflow")
+    systolic = _mod(pkg, "sim.systolic")
+    df.ws_cost_cache_clear()
+    df.ws_cost_batch_stats_clear()
+    systolic.layer_cost.cache_clear()
+    systolic._BatchTimeOracle.clear_all()
+
+
+def oracle_calls(pkg: str) -> int:
+    """Scalar ``layer_cost`` calls (hits included) + vectorized batch pairs,
+    as ``benchmarks/scale_bench.py`` counts them."""
+    info = _mod(pkg, "sim.systolic").layer_cost.cache_info()
+    pairs = _mod(pkg, "core.dataflow").ws_cost_batch_stats()["pairs"]
+    return info.hits + info.misses + pairs
+
+
+def scale_cell(pkg: str, jobs: int, n_arrays: int) -> tuple[dict, dict]:
+    """``benchmarks/scale_bench.py``'s cell: poisson light-pool arrivals at
+    0.85 of each array, jsq, cold cost caches.  Returns (seeded fields,
+    timing)."""
+    T = _mod(pkg, "traffic")
+    svc = mean_service_s(pkg, "light")
+    rate = n_arrays * 0.85 / svc
+    arr = T.get_arrival_process(
+        "poisson",
+        rate=rate,
+        horizon=jobs / rate,
+        seed=SEED,
+        pool="light",
+        slo_s=4.0 * svc,
+    )
+    sim = T.TrafficSimulator(
+        arr,
+        n_arrays=n_arrays,
+        dispatch="jsq",
+        max_concurrent=4,
+        queue_cap=8,
+        seed=SEED,
+    )
+    clear_cost_caches(pkg)
+    calls0 = oracle_calls(pkg)
+    t0 = time.perf_counter()
+    list(arr)  # the stream, so the engine's own wall can be split off
+    t1 = time.perf_counter()
+    res = sim.run()
+    t2 = time.perf_counter()
+    events = sum(n.scheduler.n_events for n in sim.nodes)
+    calls = oracle_calls(pkg) - calls0
+    row = _row(res, jobs_target=jobs, events=events, oracle_calls=calls)
+    timing = {
+        "wall_s": t2 - t0,
+        "wall_engine_s": t2 - t1,
+        "events_per_s": events / (t2 - t0),
+        "events_per_s_engine": events / (t2 - t1),
+    }
+    return row, timing
+
+
+def sharded_cell(
+    pkg: str, jobs: int, n_arrays: int, n_shards: int, parallel: bool
+) -> tuple[dict, dict]:
+    """``BENCH_fairness.json``'s ``sharded_scale`` cell: poisson light-pool
+    arrivals at 0.85 of each array, drf, round robin over ``n_shards``
+    pods, fairness armed.  ``parallel`` forks the pods (the results are the
+    same either way).  Returns (seeded fields, timing)."""
+    T = _mod(pkg, "traffic")
+    svc = mean_service_s(pkg, "light")
+    rate = n_arrays * 0.85 / svc
+    t0 = time.perf_counter()
+    res = T.ShardedTrafficSimulator(
+        "poisson",
+        policy="drf",
+        n_arrays=n_arrays,
+        n_shards=n_shards,
+        dispatch="rr",
+        max_concurrent=4,
+        queue_cap=8,
+        seed=SEED,
+        sync_every=256,
+        fairness=True,
+        parallel=parallel,
+        pod_timeout_s=POD_TIMEOUT_S,
+        rate=rate,
+        horizon=jobs / rate,
+        pool="light",
+        slo_s=4.0 * svc,
+    ).run()
+    wall = time.perf_counter() - t0
+    row = _row(res, jobs_target=jobs, n_shards=n_shards)
+    return row, {"wall_s": wall, "jobs_per_s": res.metrics.jobs_arrived / wall}
+
+
+def serve_record(pkg: str, big: bool = True, parallel: bool = True) -> tuple:
+    """Every cell of the serve phase: (seeded fields, timing).  ``big=False``
+    leaves out the scale and sharded cells."""
+    record = {**traffic_cells(pkg), "armed": armed_cells(pkg)}
+    timing = {}
+    if big:
+        record["scale"], timing["scale"] = scale_cell(pkg, *SCALE_CELL)
+        record["sharded_scale"], timing["sharded_scale"] = sharded_cell(
+            pkg, *SHARDED_CELL, parallel=parallel
+        )
+    return record, timing
+
+
+def serve_child() -> int:
+    """The serve phase's own process: the card is hidden, the pods fork from
+    a process that has never touched CUDA.  Prints its log, then one JSON
+    line ``{"serve": timing}``."""
+    import repro_torch.kernels as K
+
+    root = Path(__file__).resolve().parent
+    golden = json.loads((root / SERVE_GOLDEN).read_text())
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    record, timing = serve_record("repro_torch")
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the serving path launched kernels: {launches}")
+    check(set(record) == set(golden), f"serve cells {sorted(record)}")
+    for section, want in golden.items():
+        got = json.loads(json.dumps(record[section]))
+        check(got == want, f"serve {section}: differs from {SERVE_GOLDEN}")
+    n_runs = len(record["traffic"]) + len(record["cluster"]) + len(record["armed"]) + 2
+    log(f"serve: {n_runs} runs equal {SERVE_GOLDEN}, {launches}, {wall:.1f} s")
+    for name in ("scale", "sharded_scale"):
+        keys = ("jobs_arrived", "jobs_completed", "deadline_miss_rate")
+        log(f"serve {name}: {json.dumps({k: record[name][k] for k in keys})}")
+    print(json.dumps({"serve": timing, "wall_s": wall}), flush=True)
+    return 0
+
+
+def serve_phase() -> dict:
+    """Run :func:`serve_child` in a fresh interpreter with no card visible,
+    in a session of its own, under a time limit (at which the child and its
+    pods are killed); relay its log; return its timing."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), SERVE_FLAG],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        text=True,
+        env=env,
+        start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=SERVE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        raise AssertionError(f"serve phase over {SERVE_TIMEOUT_S} s:\n{out}\n{err}")
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    check(proc.returncode == 0, f"serve phase failed:\n{out}\n{err}")
+    timing = json.loads(lines[-1])
+    log(f"serve timing: {json.dumps(timing)}")
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# 6. mesh: the mesh backend's constants, measured
+# ---------------------------------------------------------------------------
+
+
+def queued_device_ms(torch, fn, calls: int = 10) -> float:
+    """Device ms per call of ``fn`` with the host out of the way: a spin
+    kernel holds the stream while ``calls`` calls are enqueued behind it, so
+    the CUDA events around them time the device alone.  The start event must
+    still be pending once every call is enqueued (else the spin is doubled
+    and the sample taken again)."""
+    fn()
+    torch.cuda.synchronize()
+    spin = SPIN_CYCLES
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / calls
+        spin *= 2
+
+
+def mesh_constants(torch, K) -> dict:
+    """Measure what ``MeshLatencyModel`` models, each a median of
+    ``MESH_REPEATS`` samples; returns name -> (measured, yardstick)."""
+    from repro_torch.sim import workloads
+
+    shapes, _ = kernel_mixes(workloads)["heavy_max"]
+    xs, ws = operands(torch, shapes, "bfloat16", seed=7)
+    flops = sum(2 * t * k * n for t, k, n in shapes)
+    fused = statistics.median(
+        queued_device_ms(torch, lambda: K.fused_tenant_gemm(xs, ws))
+        for _ in range(MESH_REPEATS)
+    )
+    library = statistics.median(
+        queued_device_ms(torch, lambda: [x @ w for x, w in zip(xs, ws)])
+        for _ in range(MESH_REPEATS)
+    )
+    host = torch.empty(H2D_BYTES, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(H2D_BYTES, dtype=torch.uint8, device="cuda")
+    h2d = time_in_turns(torch, {"h2d": lambda: dev.copy_(host, non_blocking=True)})
+    del host, dev
+    x1, w1 = xs[0], ws[0]
+    one = torch.ones(1, device="cuda")
+    launch = statistics.median(
+        enqueue_us(torch, lambda: K.fused_tenant_gemm([x1], [w1]))
+        for _ in range(MESH_REPEATS)
+    )
+    tiny = statistics.median(
+        enqueue_us(torch, lambda: one.add_(1.0)) for _ in range(MESH_REPEATS)
+    )
+    return {
+        "device_flops": (flops / (fused * 1e-3), flops / (library * 1e-3)),
+        "host_bw_bytes": (H2D_BYTES / (h2d["h2d"] * 1e-3), None),
+        "launch_overhead_s": (launch * 1e-6, tiny * 1e-6),
+    }
+
+
+def mesh_phase(torch, K) -> dict:
+    from repro_torch.api import Session, list_policies
+    from repro_torch.distributed.tenancy import MeshLatencyModel
+
+    default = MeshLatencyModel()
+    measured = mesh_constants(torch, K)
+    report = {}
+    for name, (value, yardstick) in measured.items():
+        want = getattr(default, name)
+        report[name] = {"measured": value, "default": want, "yardstick": yardstick}
+        log(f"mesh {name}: measured {value!r}, default {want!r}, beside {yardstick!r}")
+    log(f"mesh ici_bw_bytes: {default.ici_bw_bytes!r} (datasheet, not measured)")
+    for name, r in report.items():
+        ratio = r["measured"] / r["default"]
+        check(
+            1 / MESH_TOLERANCE <= ratio <= MESH_TOLERANCE,
+            f"mesh {name}: measured {r['measured']:.4g} is {ratio:.2f}x the default",
+        )
+    K.reset_launch_counts()
+    rows = []
+    for workload in PAPER_WORKLOADS:
+        for policy in list_policies():
+            res = Session(policy, "mesh").run(workload)
+            what = f"mesh {policy}/{workload}"
+            done = res.partitioned.completion
+            check(res.backend == "mesh", what)
+            check(set(done) == set(res.baseline.completion), f"{what}: tenants")
+            check(all(0.0 < t < float("inf") for t in done.values()), f"{what}: times")
+            rows.append(
+                {
+                    "policy": policy,
+                    "workload": workload,
+                    "makespan_s": res.partitioned.makespan,
+                    "baseline_makespan_s": res.baseline.makespan,
+                    "time_saving": res.time_saving,
+                    "turnaround_saving": res.turnaround_saving,
+                }
+            )
+            log(f"mesh: {json.dumps(rows[-1])}")
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the mesh backend launched kernels: {launches}")
+    report["runs"] = rows
+    return report
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -668,12 +1171,14 @@ def _tree_to(tree, device):
 
 
 def main() -> int:
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if sys.argv[1:] == [SERVE_FLAG]:
+        return serve_child()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.kernels as K
     from repro_torch.kernels import _build
 
@@ -683,6 +1188,8 @@ def main() -> int:
     kernels = kernel_phase(torch, K, details)
     serving_phase(torch)
     paper_phase(K)
+    serve_phase()
+    mesh_phase(torch, K)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,13 +1,14 @@
 """PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
 
-    from repro_torch import Session, list_policies
+    from repro_torch import ServeConfig, Session, list_policies, serve
 
     res = Session(policy="equal", backend="sim").run("heavy")
+    srv = Session(policy="moca").serve("mmpp", rate=40.0, horizon=1.0, memory=True)
 
 The package mirrors ``repro``'s layout (``kernels``, ``core``, ``sim``,
-``api``, ``fairness``, ``distributed``, ``models``, ``configs``,
-``serving``): each module holds the counterpart of the module of the same
-name there.  It imports ``torch`` and ``numpy`` only, never ``jax`` and
+``api``, ``traffic``, ``fairness``, ``distributed``, ``models``,
+``configs``, ``serving``): each module holds the counterpart of the module
+of the same name there.  It imports ``torch`` and ``numpy`` only, never ``jax`` and
 nothing of ``repro``.
 
 Entry points that create tensors default to ``device="cuda"`` and raise when
@@ -18,12 +19,14 @@ are lazy re-exports (PEP 562), so ``import repro_torch`` stays cheap.
 
 from __future__ import annotations
 
-__all__ = ["Session", "list_policies"]
+__all__ = ["Session", "serve", "ServeConfig", "list_policies"]
 
 #: public name -> defining module (resolved on first attribute access)
 _EXPORTS = {
     "Session": "repro_torch.api.session",
+    "ServeConfig": "repro_torch.api.config",
     "list_policies": "repro_torch.api.policy",
+    "serve": "repro_torch.traffic.simulator",
 }
 
 

@@ -6,21 +6,31 @@
 * :mod:`repro_torch.api.policy`  — the :class:`PartitionPolicy` protocol and
   the registry (the JAX package's nine policies);
 * :mod:`repro_torch.api.backend` — the :class:`Accelerator` protocol and the
-  ``sim`` backend;
-* :mod:`repro_torch.api.session` — the :class:`Session` facade.
-
-``ServeConfig`` and ``Session.serve`` (open-loop serving) and the ``mesh``
-backend are not ported yet (ROADMAP.md, "Modules to port", items 1 and 2).
+  ``sim`` and ``mesh`` backends;
+* :mod:`repro_torch.api.session` — the :class:`Session` facade
+  (``run`` for a closed workload, ``serve`` for an open-loop stream);
+* :mod:`repro_torch.api.config` — the :class:`ServeConfig` value object
+  grouping every ``serve()`` knob by subsystem.
 """
 
 from repro_torch.api.backend import (
     Accelerator,
     EnergyReport,
+    MeshBackend,
     SimBackend,
     get_backend,
     list_backends,
     register_backend,
     resolve_backend,
+)
+from repro_torch.api.config import (
+    ChaosConfig,
+    MemoryConfig,
+    OverloadConfig,
+    RebalanceConfig,
+    SchedulingConfig,
+    ServeConfig,
+    resolve_serve_config,
 )
 from repro_torch.api.policy import (
     AssignContext,
@@ -64,6 +74,7 @@ __all__ = [
     "Accelerator",
     "EnergyReport",
     "SimBackend",
+    "MeshBackend",
     "register_backend",
     "get_backend",
     "list_backends",
@@ -72,4 +83,12 @@ __all__ = [
     "Session",
     "SessionResult",
     "BaselineRun",
+    # serve config
+    "ServeConfig",
+    "SchedulingConfig",
+    "RebalanceConfig",
+    "ChaosConfig",
+    "MemoryConfig",
+    "OverloadConfig",
+    "resolve_serve_config",
 ]

@@ -6,13 +6,21 @@ compute oracle ``(layer, partition) -> seconds``), ``stage_model`` (the
 shared-bus staging model) and ``energy`` (post-hoc energy accounting of a
 finished schedule, or None).
 
-Registered backends (``list_backends()``): ``sim`` — the paper's evaluation
-rig, the Scale-Sim-style analytic cycle model
-(:mod:`repro_torch.sim.systolic`) and the 45 nm Mul_En energy model
-(:mod:`repro_torch.sim.energy`) on a 128×128 weight-stationary array.  The
-JAX package's ``mesh`` backend needs a tenancy latency model with the
-H100's own constants and is not ported yet (ROADMAP.md, "Modules to port",
-item 2); asking for it raises the registry's ``ValueError``.
+Registered backends (``list_backends()``):
+
+=========  ==============================================================
+``mesh``   device columns timed by
+           :class:`~repro_torch.distributed.tenancy.MeshLatencyModel`
+           (compute + per-layer collective + launch overhead), whose
+           defaults are the H100's own measured constants; no energy model
+``sim``    the paper's evaluation rig: the Scale-Sim-style analytic cycle
+           model (:mod:`repro_torch.sim.systolic`) and the 45 nm Mul_En
+           energy model (:mod:`repro_torch.sim.energy`) on a 128×128
+           weight-stationary array
+=========  ==============================================================
+
+Both are host arithmetic: they model an accelerator and put nothing on the
+card.
 """
 
 from __future__ import annotations
@@ -122,3 +130,30 @@ class SimBackend:
             self.energy_model,
             baseline_pe=baseline_pe,
         )
+
+
+@register_backend("mesh")
+class MeshBackend:
+    """Cluster-scale backend: ``n_cols`` device columns, timed by
+    :class:`~repro_torch.distributed.tenancy.MeshLatencyModel` (per-slice
+    compute + output collective + dispatch overhead).  No energy model —
+    mesh runs report time/utilization only."""
+
+    def __init__(self, n_cols: int = 8, rows: int = 1, latency=None):
+        from repro_torch.distributed.tenancy import MeshLatencyModel
+
+        self.latency = latency or MeshLatencyModel()
+        self._array = ArrayShape(rows=rows, cols=n_cols)
+
+    @property
+    def array(self) -> ArrayShape:
+        return self._array
+
+    def time_fn(self) -> TimeFn:
+        return self.latency.time_fn()
+
+    def stage_model(self) -> Optional[StageModel]:
+        return StageModel(dram_bw_bytes=self.latency.host_bw_bytes)
+
+    def energy(self, result, layers_by_key, baseline_pe):
+        return None

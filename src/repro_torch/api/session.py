@@ -11,7 +11,8 @@ A Session binds one :class:`~repro_torch.api.policy.PartitionPolicy` to one
 name from ``repro_torch.sim.workloads.WORKLOADS`` or a ``Sequence[DNNG]``)
 under dynamic partitioning, and — unless ``compare_baseline=False`` — also
 runs the sequential single-tenancy baseline so savings can be reported.
-Open-loop serving (``serve``) is not ported yet.
+:meth:`Session.serve` drives an open-loop arrival stream through the same
+policy × backend (:mod:`repro_torch.traffic`).
 """
 
 from __future__ import annotations
@@ -221,10 +222,24 @@ class Session:
                 f"baseline ran on backend {baseline.backend!r}, not {mine!r}"
             )
 
-    def serve(self, arrivals, **kwargs):
-        """Open-loop serving is not ported yet."""
-        raise NotImplementedError(
-            "Session.serve is not ported yet: ROADMAP.md, 'Modules to port', "
-            "item 1 (ServeConfig, Session.serve, traffic, fairness accounting, "
-            "chaos, overload, obs)"
-        )
+    def serve(self, arrivals, *, config=None, **kwargs):
+        """Open-loop serving: drive an arrival process through this session's
+        policy × backend and return a
+        :class:`~repro_torch.traffic.simulator.ServeResult` (latency
+        percentiles, deadline-miss rate, goodput).
+
+        ``arrivals`` is a :mod:`repro_torch.traffic.arrivals` process, a
+        registry name (``"poisson"``, ``"mmpp"``, ``"diurnal"``, ``"trace"``,
+        ``"batch_instance"`` — constructor kwargs such as
+        ``rate=``/``horizon=`` forwarded), or any time-ordered iterable of
+        :class:`~repro_torch.traffic.arrivals.Job`.  Serving knobs go in a
+        :class:`~repro_torch.api.config.ServeConfig` (``config=``) or as the
+        flat keywords of
+        :class:`~repro_torch.traffic.simulator.TrafficSimulator` — one
+        spelling per call, never both.
+        """
+        from repro_torch.traffic.simulator import TrafficSimulator
+
+        return TrafficSimulator(
+            arrivals, policy=self.policy, backend=self.backend, config=config, **kwargs
+        ).run()

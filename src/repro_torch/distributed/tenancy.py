@@ -10,6 +10,11 @@ sub-grid is the slice of its columns.  One card is a (1, 1) grid.
 
 Fault tolerance: ``mark_unhealthy(col)`` removes a device column from
 service; affected tenants are re-placed on the next rebalance.
+
+:class:`MeshLatencyModel` is the analytic per-layer latency of a GEMM on a
+slice of such a grid; the ``mesh`` backend of :mod:`repro_torch.api` drives
+the event scheduler with it.  Its defaults are the H100's own, measured by
+``chip_smoke.py``'s ``mesh`` phase.
 """
 
 from __future__ import annotations
@@ -20,7 +25,46 @@ import numpy as np
 import torch
 
 from repro_torch.api.policy import TenantDemand, resolve_policy
+from repro_torch.core.dnng import LayerShape
 from repro_torch.core.partition import ArrayShape, Partition, PartitionSet
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshLatencyModel:
+    """Analytic per-layer latency of a GEMM on a slice of device columns.
+
+    A layer sharded over a ``w``-device slice pays per-device compute, a ring
+    collective over its output activations (weights are column-sharded, so
+    each step all-gathers/reduce-scatters the OFMap), and a fixed dispatch
+    overhead.  The formula is the JAX package's; the defaults are one NVIDIA
+    H100 80GB HBM3 at a 700.00 W power limit, measured by ``chip_smoke.py``'s
+    ``mesh`` phase, except ``ici_bw_bytes``:
+
+    * ``device_flops`` — useful bf16 FLOP/s of the port's own
+      ``fused_tenant_gemm`` on the heavy_max round, in device time;
+    * ``ici_bw_bytes`` — NVLink 4 per direction on an H100 SXM5, a
+      datasheet figure and not a measurement: one card has no peer;
+    * ``host_bw_bytes`` — a pinned 256 MiB host→device ``copy_``;
+    * ``launch_overhead_s`` — host enqueue of a one-tenant
+      ``fused_tenant_gemm`` call.
+    """
+
+    device_flops: float = 66.3e12  # bf16 fused_tenant_gemm, heavy_max (measured)
+    ici_bw_bytes: float = 450e9  # NVLink 4 per direction (datasheet)
+    host_bw_bytes: float = 45.4e9  # pinned host->device copy (measured)
+    launch_overhead_s: float = 47.9e-6  # fused_tenant_gemm enqueue (measured)
+
+    def layer_time_s(self, layer: LayerShape, part: Partition) -> float:
+        flops = 2.0 * layer.macs
+        compute = flops / (self.device_flops * part.n_pes)
+        comm = 0.0
+        if part.cols > 1:
+            out_bytes = 2.0 * layer.gemm_m * layer.gemm_n
+            comm = 2.0 * (part.cols - 1) / part.cols * out_bytes / self.ici_bw_bytes
+        return self.launch_overhead_s + compute + comm
+
+    def time_fn(self):
+        return self.layer_time_s
 
 
 def device_grid(device: str | torch.device, cols: int = 1) -> np.ndarray:

@@ -26,7 +26,7 @@ from repro_torch.models.layers import AttnConfig
 Params = dict[str, Any]
 
 _NOT_PORTED = (
-    "is not ported yet: ROADMAP.md, 'Modules to port', item 3 "
+    "is not ported yet: ROADMAP.md, 'Modules to port', item 4 "
     "(model families moe, ssm, hybrid, encdec)"
 )
 

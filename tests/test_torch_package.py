@@ -59,13 +59,26 @@ PAPER_PATH = [
     "sim/workloads.py",
 ]
 
+# the open-loop serving path's modules: host Python, no kernel
+SERVE_PATH = [
+    "api/config.py",
+    "fairness/accounting.py",
+    "traffic/__init__.py",
+    "traffic/arrivals.py",
+    "traffic/cluster.py",
+    "traffic/metrics.py",
+    "traffic/rebalance.py",
+    "traffic/sharded.py",
+    "traffic/simulator.py",
+]
+
 
 def test_scan_sees_every_module():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    for rel in PAPER_PATH:
+    for rel in PAPER_PATH + SERVE_PATH:
         assert os.path.join(PORT, *rel.split("/")) in files, rel
-    assert len(files) >= 34
+    assert len(files) >= 43
 
 
 def test_front_door_imports_no_jax_and_no_repro():
@@ -77,6 +90,9 @@ def test_front_door_imports_no_jax_and_no_repro():
         "from repro_torch.api import Session\n"
         "res = Session('equal').run('light')\n"
         "assert res.partitioned.makespan > 0\n"
+        "srv = Session('drf').serve('poisson', rate=2e3, horizon=0.01, fairness=True)\n"
+        "assert srv.metrics.jobs_arrived > 0\n"
+        "assert Session('equal', 'mesh').run('light').partitioned.makespan > 0\n"
         "assert len(repro_torch.api.list_policies()) == 9\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n"

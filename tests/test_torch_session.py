@@ -168,9 +168,10 @@ def test_runner_prints_the_same_report_without_jax():
 def test_policy_and_backend_registries():
     assert P.list_policies() == J.list_policies()
     assert len(P.list_policies()) == 9
-    assert P.list_backends() == ["sim"]
+    assert P.list_backends() == ["mesh", "sim"] == J.list_backends()
     assert P.get_policy("paper").name == "equal"
     assert isinstance(P.resolve_backend("sim"), P.Accelerator)
+    assert isinstance(P.resolve_backend("mesh"), P.Accelerator)
 
 
 @pytest.mark.parametrize("name", ["equl", "Equal", "drff"])
@@ -181,11 +182,46 @@ def test_typo_policy_lists_the_registry(name):
     assert name in msg and all(p in msg for p in P.list_policies())
 
 
-@pytest.mark.parametrize("name", ["mesh", "simm"])
+@pytest.mark.parametrize("name", ["simm"])
 def test_unknown_backend_lists_the_registry(name):
-    """``mesh`` is not ported yet (ROADMAP item 2): it raises like a typo."""
-    with pytest.raises(ValueError, match=r"unknown backend .*registered: \['sim'\]"):
+    match = r"unknown backend .*registered: \['mesh', 'sim'\]"
+    with pytest.raises(ValueError, match=match):
         P.Session(backend=name)
+
+
+# the JAX package's MeshLatencyModel defaults, passed explicitly: the
+# port's own defaults are the H100's
+JAX_MESH = dict(
+    device_flops=90e12, ici_bw_bytes=45e9, host_bw_bytes=50e9, launch_overhead_s=5e-6
+)
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_mesh_backend_matches_jax(policy, workload):
+    from repro.distributed.tenancy import MeshLatencyModel as JM
+    from repro_torch.distributed.tenancy import MeshLatencyModel as PM
+
+    mine = P.Session(policy, "mesh", latency=PM(**JAX_MESH)).run(workload)
+    theirs = J.Session(policy, "mesh", latency=JM(**JAX_MESH)).run(workload)
+    assert mine.as_dict() == theirs.as_dict()
+    assert mine.partitioned_energy is None and mine.baseline_energy is None
+    pairs = [(mine.partitioned, theirs.partitioned), (mine.baseline, theirs.baseline)]
+    for m, t in pairs:
+        assert _events(m) == _events(t)
+
+
+def test_mesh_backend_geometry_and_defaults():
+    from repro_torch.distributed.tenancy import MeshLatencyModel
+
+    mesh = P.MeshBackend(n_cols=4, rows=2)
+    assert (mesh.array.rows, mesh.array.cols) == (2, 4)
+    assert mesh.stage_model().dram_bw_bytes == mesh.latency.host_bw_bytes
+    default = MeshLatencyModel()
+    for name, tpu in JAX_MESH.items():
+        assert getattr(default, name) != tpu, name
+    res = P.Session("equal", "mesh").run("light")
+    assert res.backend == "mesh" and res.partitioned.makespan > 0
 
 
 def test_bad_policy_and_backend_objects_rejected():
@@ -293,8 +329,12 @@ def test_workloads_read_at_call_time(monkeypatch):
 
 
 def test_serve_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 1"):
-        P.Session().serve("poisson", rate=10.0)
+    """Serving runs; a knob whose subsystem is not ported yet names the
+    ROADMAP item that ports it."""
+    res = P.Session().serve("poisson", rate=2000.0, horizon=0.01)
+    assert res.metrics.jobs_arrived > 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
+        P.Session().serve("poisson", rate=10.0, horizon=1.0, obs=True)
 
 
 def test_top_level_lazy_exports():
