@@ -25,7 +25,11 @@ check:
    the tenants' own tensors (the main path), and ``sequential_tenant_gemm``
    (one ``torch.matmul`` per tenant) as the library yardstick; each kernel's
    device time comes from ``torch.profiler`` and each entry point's host
-   enqueue time from the host clock.
+   enqueue time from the host clock.  The ``FusedGemmStats`` of every
+   full-width main-path call are folded (``record_gemm_stats``) into one
+   ``repro_torch.obs.MetricsRegistry`` with the host caches
+   (``snapshot_host_caches``), outside the timed loops; the call count is
+   checked and the registry printed.
 3. Serving: a ``MultiTenantEngine`` over the card as one column serves two
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
@@ -51,7 +55,22 @@ check:
    Every seeded field of every run must equal ``tests/data/serve_golden.json``
    (made from the JAX package, ``tests/test_torch_traffic.py``), and the
    path must launch no kernel.  Wall time, events/s and jobs/s are printed.
-   The child, and every pipe read of the pods, has a time limit.
+   The child, and every pipe read of the pods, has a time limit.  Then, in
+   the same child, fault injection, overload control and observability:
+   every cell of ``benchmarks/chaos_bench.py`` (a seeded plan, crash under
+   ``retry_restart`` and ``none``, degrade, straggler, a sharded
+   ``pod_kill`` that must raise ``PodFailureError``),
+   ``benchmarks/overload_bench.py`` (``static``, ``codel`` and ``brownout``
+   arms, the pod respawn cell serial and forked) and
+   ``benchmarks/obs_bench.py``'s trace cell (Perfetto JSON exported twice,
+   identical bytes, into ``build/traces``); the 10,000-job cell with faults,
+   brownout and obs armed; the 100,000-job, 8-pod cell with obs, a
+   ``pod_kill`` and respawn.  Every seeded field must equal
+   ``tests/data/resilience_golden.json`` (``tests/test_torch_chaos.py``), with
+   no kernel launched.  Last, the obs overhead pair of ``obs_bench.py``
+   (CPU time, alternated, minimum per side, at most 720 s of rounds):
+   armed and off serialize the same bytes, and the armed ratio must stay
+   within 1.05.
 6. Mesh: the ``mesh`` backend's constants measured on the card beside
    ``MeshLatencyModel()``'s defaults (each must lie within 2x of its
    default): the bf16 rate of ``fused_tenant_gemm`` on the heavy_max round
@@ -69,6 +88,8 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import hashlib
 import importlib
 import json
@@ -109,7 +130,9 @@ PAPER_POLICIES = [
 GOLDEN = "tests/data/seed_trace_{}.json"
 SERVE_GOLDEN = "tests/data/serve_golden.json"
 SERVE_FLAG = "--serve-phase"  # the child process of the serve phase
-SERVE_TIMEOUT_S = 600  # the whole serve phase, child included
+# the whole serve phase, child included: its cells take under a minute on the
+# card's host, and the obs overhead pair starts no round past OBS_WALL_S
+SERVE_TIMEOUT_S = 960
 POD_TIMEOUT_S = 300.0  # any one pipe read of a sharded pod
 SEED = 0
 # benchmarks/traffic_bench.py's matrix
@@ -349,6 +372,35 @@ def device_profile(torch, fn, calls: int) -> tuple[float, float, list]:
     return wall_ms, sum(ms for _, ms in rows), rows[:6]
 
 
+def kernel_registry(K, results: dict) -> None:
+    """Fold the ``FusedGemmStats`` of every full-width main-path call into
+    one ``repro_torch.obs.MetricsRegistry`` (``record_gemm_stats``), then
+    the host caches (``snapshot_host_caches``, the autotuner's included);
+    check the call count and that the autotuner was consulted; print the
+    registry and its summary.  Runs after the main path, outside every
+    timed loop."""
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs.render import render_summary, snapshot_host_caches
+
+    registry = MetricsRegistry()
+    calls = 0
+    for (mix, _dt, _mode), (_, stats) in results.items():
+        if mix in FULL_WIDTH:
+            K.record_gemm_stats(registry, stats)
+            calls += 1
+    snapshot_host_caches(registry)
+    counters = {k: c.value for k, c in registry.counters.items()}
+    want = len(FULL_WIDTH) * len(DTYPES) * len(MODES)
+    check(
+        counters["kernel.gemm.calls"] == calls == want,
+        f"kernel.gemm.calls {counters['kernel.gemm.calls']}, {calls} calls",
+    )
+    tuned = counters["kernel.autotune.hits"] + counters["kernel.autotune.misses"]
+    check(tuned >= 1, "the block autotuner was never consulted")
+    log(f"kernel registry: {json.dumps(registry.as_dict())}")
+    log(render_summary(registry, title="kernel path, full-width rounds"))
+
+
 def kernel_phase(torch, K, details: dict) -> list[dict]:
     from repro_torch.sim import workloads
 
@@ -381,6 +433,7 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
     launches = K.launch_counts()
     log(f"main path launches: {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}")
+    kernel_registry(K, results)
 
     # -- each kernel against its plain version ------------------------------
     errs = {m: {"abs": 0.0, "rel": 0.0} for m in MODES}
@@ -759,14 +812,20 @@ def _row(res, **extra) -> dict:
     return row
 
 
-def traffic_cells(pkg: str) -> dict:
-    """``benchmarks/traffic_bench.py``: process x policy x load on one
-    array, then jsq vs p2c on four."""
+def traffic_parts(pkg: str, obs=None, keep_trace: bool = False) -> list:
+    """``benchmarks/traffic_bench.py`` in four parts: process x policy x
+    load on one array, one part per arrival process, then jsq vs p2c on
+    four arrays.  A part is a zero-argument callable that runs its cells
+    and returns ``(result, extra fields)`` per run; ``obs`` (an
+    ``Observability`` factory's product, or None) and ``keep_trace`` arm
+    every run, as the obs overhead pair does."""
     T = _mod(pkg, "traffic")
     svc = mean_service_s(pkg, "light")
     slo = 4.0 * svc
-    rows = []
-    for proc in TRAFFIC_PROCESSES:
+    kw = dict(max_concurrent=4, queue_cap=8, seed=SEED, obs=obs, keep_trace=keep_trace)
+
+    def one_array(proc: str) -> list:
+        runs = []
         for load in TRAFFIC_LOADS:
             rate = load / svc
             arr = T.get_arrival_process(
@@ -778,32 +837,40 @@ def traffic_cells(pkg: str) -> dict:
                 slo_s=slo,
             )
             for pol in TRAFFIC_POLICIES:
-                res = T.TrafficSimulator(
-                    arr, policy=pol, max_concurrent=4, queue_cap=8, seed=SEED
-                ).run()
-                rows.append(_row(res, load=load, rate_jobs_per_s=rate, slo_s=slo))
-    n_arrays = 4
-    rate = n_arrays * 0.9 / svc
-    arr = T.get_arrival_process(
-        "poisson",
-        rate=rate,
-        horizon=n_arrays * TRAFFIC_JOBS / rate,
-        seed=SEED,
-        pool="light",
-        slo_s=slo,
-    )
-    cluster = []
-    for dispatch in ("jsq", "p2c"):
-        res = T.TrafficSimulator(
-            arr,
-            n_arrays=n_arrays,
-            dispatch=dispatch,
-            max_concurrent=4,
-            queue_cap=8,
+                res = T.TrafficSimulator(arr, policy=pol, **kw).run()
+                runs.append((res, dict(load=load, rate_jobs_per_s=rate, slo_s=slo)))
+        return runs
+
+    def fleet() -> list:
+        n_arrays = 4
+        rate = n_arrays * 0.9 / svc
+        arr = T.get_arrival_process(
+            "poisson",
+            rate=rate,
+            horizon=n_arrays * TRAFFIC_JOBS / rate,
             seed=SEED,
-        ).run()
-        cluster.append(_row(res, load=0.9, rate_jobs_per_s=rate, slo_s=slo))
-    return {"traffic": rows, "cluster": cluster}
+            pool="light",
+            slo_s=slo,
+        )
+        runs = []
+        for dispatch in ("jsq", "p2c"):
+            res = T.TrafficSimulator(arr, n_arrays=n_arrays, dispatch=dispatch, **kw).run()
+            runs.append((res, dict(load=0.9, rate_jobs_per_s=rate, slo_s=slo)))
+        return runs
+
+    return [functools.partial(one_array, proc) for proc in TRAFFIC_PROCESSES] + [fleet]
+
+
+def traffic_runs(pkg: str, obs=None, keep_trace: bool = False) -> list:
+    """Every run of :func:`traffic_parts`, in order."""
+    return [run for part in traffic_parts(pkg, obs, keep_trace) for run in part()]
+
+
+def traffic_cells(pkg: str) -> dict:
+    """The traffic matrix's rows, then the cluster block's."""
+    rows = [_row(res, **extra) for res, extra in traffic_runs(pkg)]
+    n = len(TRAFFIC_PROCESSES) * len(TRAFFIC_LOADS) * len(TRAFFIC_POLICIES)
+    return {"traffic": rows[:n], "cluster": rows[n:]}
 
 
 def armed_cells(pkg: str) -> dict:
@@ -999,10 +1066,526 @@ def serve_record(pkg: str, big: bool = True, parallel: bool = True) -> tuple:
     return record, timing
 
 
+# ---------------------------------------------------------------------------
+# 5b. fault injection, overload control and observability (serve child)
+# ---------------------------------------------------------------------------
+# benchmarks/chaos_bench.py, overload_bench.py and obs_bench.py, cell for
+# cell, and the two big serve cells with every resilience knob armed.  Like
+# serve_record, the cells take the package's name: tests/test_torch_chaos.py
+# makes tests/data/resilience_golden.json from the JAX package with this code.
+
+RESILIENCE_GOLDEN = "tests/data/resilience_golden.json"
+CHAOS_CELL = (4, 0.65, 800, 10.0, (0, 1, 2))  # arrays, load, jobs, slo x, tiers
+OVERLOAD_CELL = (4, 1.5, 600, 4.0, (0, 1, 1))
+OVERLOAD_DELAY_S = 2e-3  # overload_bench.py's queue-delay setpoint
+CODEL_INTERVAL_S = 5e-3
+TRACE_CELL = (4, 1.1, 60)  # obs_bench.py: arrays, load, jobs per array
+TRACE_DIR = "build/traces"  # gitignored
+OBS_BUDGET = 1.05  # obs_bench.py's armed-overhead budget
+OBS_REPEATS = 7
+OBS_MAX_TRIES = 4
+# passes of the traffic cells per CPU-time sample: one pass is 0.15-0.3 s of
+# CPU on the card's host, whose process clock ticks in 10 ms steps and
+# whose speed moves by more than the 1.05 budget from pass to pass
+OBS_PASSES = 16
+OBS_WALL_S = 720  # no round of the overhead pair starts that would end later
+
+
+def _jsonable(obj):
+    """Tuples to lists and int keys to strings, as ``json`` would."""
+    return json.loads(json.dumps(obj))
+
+
+def _fault_row(res, **extra) -> dict:
+    """A fault-armed run's seeded fields: its row, the ``ChaosReport`` and
+    the monitor's belief transitions."""
+    row = _row(res, **extra)
+    row["chaos_report"] = res.chaos.as_dict()
+    row["transitions"] = _jsonable(res.chaos.transitions)
+    return row
+
+
+def _brownout_row(report) -> dict:
+    return _jsonable(dataclasses.asdict(report))
+
+
+def _pod_failure(err) -> dict:
+    """The ``PodFailureError`` payload, as the reference reports it."""
+    records = [dataclasses.astuple(r) for r in err.partial_records]
+    return {
+        "pod": err.pod,
+        "epoch": err.epoch,
+        "jobs_completed": err.jobs_completed,
+        "pod_status": _jsonable(err.pod_status),
+        "partial_records": len(records),
+        "partial_records_sha256": _sha256(records),
+    }
+
+
+def chaos_cells(pkg: str, jobs: int = CHAOS_CELL[2], parallel: bool = True) -> dict:
+    """``benchmarks/chaos_bench.py``: the seeded plan, a crash under
+    ``retry_restart`` and under ``none``, degrade and straggler on 4 arrays
+    at rho 0.65 (light pool, jsq), then the sharded ``pod_kill`` cell, which
+    must raise ``PodFailureError``."""
+    T = _mod(pkg, "traffic")
+    chaos = _mod(pkg, "chaos")
+    n_arrays, load, _, slo, tiers = CHAOS_CELL
+    svc = mean_service_s(pkg, "light")
+    rate = n_arrays * load / svc
+    horizon = jobs / rate
+    kw = dict(
+        policy="equal",
+        n_arrays=n_arrays,
+        dispatch="jsq",
+        max_concurrent=4,
+        queue_cap=16,
+        seed=SEED,
+        rate=rate,
+        horizon=horizon,
+        pool="light",
+        slo_s=slo * svc,
+        tiers=tiers,
+    )
+    at = horizon * 0.3
+    single = chaos.FaultPlan.single
+    seeded = chaos.FaultPlan.seeded(
+        SEED, horizon=horizon, n_nodes=n_arrays, crashes=1, blackouts=1, stragglers=1
+    )
+    plans = {
+        "seeded": (seeded, None),
+        "crash": (single("crash", t=at, node=1), None),
+        "crash_none": (single("crash", t=at, node=1), "none"),
+        "degrade": (single("degrade", t=at, node=1, dead_cols=64), None),
+        "straggler": (
+            single("straggler", t=at, node=2, factor=4.0, duration_s=at),
+            None,
+        ),
+    }
+    out = {}
+    for name, (plan, recovery) in plans.items():
+        extra = {"recovery": recovery} if recovery is not None else {}
+        res = T.TrafficSimulator("poisson", faults=plan, **extra, **kw).run()
+        out[name] = _fault_row(res)
+    sim = T.ShardedTrafficSimulator(
+        "poisson",
+        policy="equal",
+        n_arrays=4,
+        n_shards=2,
+        seed=SEED,
+        sync_every=16,
+        parallel=parallel,
+        pod_timeout_s=POD_TIMEOUT_S,
+        faults=chaos.FaultEvent(t=0.0, kind="pod_kill", node=1, epoch=1),
+        rate=3000.0,
+        horizon=0.05,
+        pool="light",
+        slo_s=0.05,
+    )
+    try:
+        sim.run()
+    except T.PodFailureError as err:
+        check("pod 1" in str(err), f"pod_kill: {err}")
+        out["pod_kill"] = _pod_failure(err)
+    check("pod_kill" in out, "the killed pod did not raise PodFailureError")
+    return out
+
+
+def _overload_arm(pkg: str, arm: str, kw: dict):
+    api = _mod(pkg, "api")
+    overload = _mod(pkg, "overload")
+    admission = brownout = None
+    if arm == "static":
+        admission = "static"
+    elif arm == "codel":
+        admission = overload.CoDelAdmission(
+            target_delay_s=OVERLOAD_DELAY_S, interval_s=CODEL_INTERVAL_S
+        )
+    else:
+        stage = overload.BrownoutStage
+        ladder = (
+            stage("shrink_floors", batch_demand_scale=0.5),
+            stage("stretch_deadlines", batch_demand_scale=0.35, deadline_stretch=2.0),
+            stage(
+                "shed", batch_demand_scale=0.25, deadline_stretch=2.0, shed_batch=True
+            ),
+        )
+        brownout = overload.BrownoutController(
+            delay_target_s=OVERLOAD_DELAY_S, stages=ladder
+        )
+    n_arrays, *_ = OVERLOAD_CELL
+    cfg = api.ServeConfig(
+        scheduling=api.SchedulingConfig(
+            n_arrays=n_arrays, dispatch="jsq", max_concurrent=4, queue_cap=8, seed=SEED
+        ),
+        overload=api.OverloadConfig(admission=admission, brownout=brownout),
+    )
+    return _mod(pkg, "traffic").TrafficSimulator(
+        "mmpp", policy="width_aware", config=cfg, **kw
+    ).run()
+
+
+def overload_cells(
+    pkg: str, jobs: int = OVERLOAD_CELL[2], parallel: bool = True
+) -> dict:
+    """``benchmarks/overload_bench.py``: ``static``, ``codel`` and
+    ``brownout`` on the overdriven cell (4 arrays, rho 1.5, mmpp,
+    ``width_aware``, tiers (0, 1, 1)); then the sharded respawn cell: abort
+    without respawn, and with it serial == forked."""
+    T = _mod(pkg, "traffic")
+    chaos = _mod(pkg, "chaos")
+    n_arrays, load, _, slo, tiers = OVERLOAD_CELL
+    svc = mean_service_s(pkg, "light")
+    rate = n_arrays * load / svc
+    kw = dict(
+        rate=rate, horizon=jobs / rate, pool="light", slo_s=slo * svc, tiers=tiers
+    )
+    out = {}
+    for arm in ("static", "codel", "brownout"):
+        res = _overload_arm(pkg, arm, kw)
+        row = _row(res, tier0_p99_latency_s=res.per("tier")[0].p99_latency_s)
+        if res.brownout is not None:
+            row["brownout_report"] = _brownout_row(res.brownout)
+        out[arm] = row
+    shed = [out[a].get("shed_by_tier") or {} for a in out]
+    check(all("0" not in s and 0 not in s for s in shed), f"tier 0 was shed: {shed}")
+
+    def sharded(**extra):
+        return T.ShardedTrafficSimulator(
+            "poisson",
+            n_arrays=n_arrays,
+            n_shards=2,
+            dispatch="rr",
+            max_concurrent=4,
+            queue_cap=8,
+            seed=SEED,
+            sync_every=64,
+            pod_timeout_s=POD_TIMEOUT_S,
+            rate=rate,
+            horizon=jobs / (2 * rate),
+            pool="light",
+            slo_s=slo * svc,
+            tiers=tiers,
+            **extra,
+        )
+
+    kill = chaos.FaultEvent(t=0.0, kind="pod_kill", node=1, epoch=1)
+    try:
+        sharded(parallel=False, faults=kill).run()
+    except T.PodFailureError as err:
+        out["abort"] = _pod_failure(err)
+    check("abort" in out, "pod_kill without respawn did not abort")
+    serial = sharded(parallel=False, faults=kill, respawn=True).run()
+    out["respawn"] = _row(serial)
+    if parallel:
+        forked = sharded(parallel=True, faults=kill, respawn=True).run()
+        check(_row(forked) == out["respawn"], "respawn: serial != forked")
+    check(serial.recovery == "pod_respawn", f"respawn: {serial.recovery}")
+    return out
+
+
+def trace_cell(pkg: str, jobs_per_array: int = TRACE_CELL[2], trace_dir=None):
+    """``benchmarks/obs_bench.py``'s trace cell: bursty heavy mix on 4
+    arrays, ``deadline_preempt`` with preemption and migration armed,
+    per-layer schedules kept, obs armed.  Exports the Perfetto JSON twice
+    (two runs) into ``trace_dir`` and requires identical bytes.  Returns
+    (seeded fields, timing)."""
+    T = _mod(pkg, "traffic")
+    n_arrays, load, _ = TRACE_CELL
+    svc = mean_service_s(pkg, "heavy")
+    rate = n_arrays * load / svc
+    trace_dir = Path(trace_dir or Path(__file__).resolve().parent / TRACE_DIR)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    blobs, timing = [], {}
+    for i in range(2):
+        arr = T.get_arrival_process(
+            "mmpp",
+            rate=rate,
+            horizon=n_arrays * jobs_per_array / rate,
+            seed=SEED,
+            pool="heavy",
+            slo_s=3.0 * svc,
+            burst_factor=6.0,
+        )
+        clear_cost_caches(pkg)
+        t0 = time.perf_counter()
+        res = T.TrafficSimulator(
+            arr,
+            policy="deadline_preempt",
+            n_arrays=n_arrays,
+            dispatch="jsq",
+            max_concurrent=4,
+            queue_cap=8,
+            seed=SEED,
+            preemption=True,
+            rebalance_interval=1e-3,
+            keep_trace=True,
+            obs=True,
+        ).run()
+        t1 = time.perf_counter()
+        path = trace_dir / f"{pkg}.{i}.perfetto-trace.json"
+        trace = res.timeline.write_chrome_trace(str(path))
+        t2 = time.perf_counter()
+        blobs.append(path.read_bytes())
+        timing = {"wall_s": t1 - t0, "export_s": t2 - t1, "bytes": len(blobs[-1])}
+    check(blobs[0] == blobs[1], "trace export: two runs differ")
+    events = trace["traceEvents"]
+    kinds: dict = {}
+    for e in events:
+        if e["ph"] in ("X", "i"):
+            kinds[e["cat"]] = kinds.get(e["cat"], 0) + 1
+    row = _row(res)
+    row["trace"] = {
+        "sha256": hashlib.sha256(blobs[0]).hexdigest(),
+        "bytes": len(blobs[0]),
+        "events": len(events),
+        "spans": sum(e["ph"] == "X" for e in events),
+        "preempt_markers": kinds.get("preempt", 0),
+        "migrate_markers": kinds.get("migrate", 0),
+        "node_tracks": sorted({e["pid"] for e in events if e["ph"] != "M"}),
+    }
+    row["csv_sha256"] = hashlib.sha256(res.timeline.timeline_csv().encode()).hexdigest()
+    row["render_sha256"] = hashlib.sha256(res.timeline.render().encode()).hexdigest()
+    return row, timing
+
+
+def armed_scale_cell(pkg: str, jobs: int, n_arrays: int) -> tuple[dict, dict]:
+    """The scale cell with faults (``chaos_bench``'s seeded plan spread
+    over the fleet), ``brownout=True`` and ``obs=True`` armed."""
+    T = _mod(pkg, "traffic")
+    chaos = _mod(pkg, "chaos")
+    svc = mean_service_s(pkg, "light")
+    rate = n_arrays * 0.85 / svc
+    horizon = jobs / rate
+    arr = T.get_arrival_process(
+        "poisson", rate=rate, horizon=horizon, seed=SEED, pool="light", slo_s=4.0 * svc
+    )
+    plan = chaos.FaultPlan.seeded(
+        SEED, horizon=horizon, n_nodes=n_arrays, crashes=1, blackouts=1, stragglers=1
+    )
+    sim = T.TrafficSimulator(
+        arr,
+        n_arrays=n_arrays,
+        dispatch="jsq",
+        max_concurrent=4,
+        queue_cap=8,
+        seed=SEED,
+        faults=plan,
+        brownout=True,
+        obs=True,
+    )
+    clear_cost_caches(pkg)
+    list(arr)
+    t0 = time.perf_counter()
+    res = sim.run()
+    wall = time.perf_counter() - t0
+    events = sum(n.scheduler.n_events for n in sim.nodes)
+    row = _fault_row(res, jobs_target=jobs, events=events)
+    row["brownout_report"] = _brownout_row(res.brownout)
+    return row, {"wall_engine_s": wall, "events_per_s_engine": events / wall}
+
+
+def respawn_scale_cell(
+    pkg: str, jobs: int, n_arrays: int, n_shards: int, parallel: bool
+) -> tuple[dict, dict]:
+    """The sharded scale cell (``rr``, drf, fairness armed) with ``obs=True``,
+    a ``pod_kill`` of pod 3 at epoch 2 and ``respawn=True``."""
+    T = _mod(pkg, "traffic")
+    chaos = _mod(pkg, "chaos")
+    svc = mean_service_s(pkg, "light")
+    rate = n_arrays * 0.85 / svc
+    t0 = time.perf_counter()
+    res = T.ShardedTrafficSimulator(
+        "poisson",
+        policy="drf",
+        n_arrays=n_arrays,
+        n_shards=n_shards,
+        dispatch="rr",
+        max_concurrent=4,
+        queue_cap=8,
+        seed=SEED,
+        sync_every=256,
+        fairness=True,
+        parallel=parallel,
+        pod_timeout_s=POD_TIMEOUT_S,
+        obs=True,
+        faults=chaos.FaultEvent(t=0.0, kind="pod_kill", node=3, epoch=2),
+        respawn=True,
+        rate=rate,
+        horizon=jobs / rate,
+        pool="light",
+        slo_s=4.0 * svc,
+    ).run()
+    wall = time.perf_counter() - t0
+    check(res.recovery == "pod_respawn", f"respawn: {res.recovery}")
+    row = _row(res, jobs_target=jobs, n_shards=n_shards)
+    return row, {"wall_s": wall, "jobs_per_s": res.metrics.jobs_arrived / wall}
+
+
+def resilience_record(pkg: str, parallel: bool = True) -> tuple:
+    """Every resilience cell, the two scale cells included: (seeded fields,
+    timing)."""
+    timing = {}
+    record = {}
+    for name, fn in (("chaos", chaos_cells), ("overload", overload_cells)):
+        t0 = time.perf_counter()
+        record[name] = fn(pkg, parallel=parallel)
+        timing[name] = {"wall_s": time.perf_counter() - t0}
+    record["obs"], timing["obs"] = trace_cell(pkg)
+    record["scale"], timing["scale"] = armed_scale_cell(pkg, *SCALE_CELL)
+    record["sharded_scale"], timing["sharded_scale"] = respawn_scale_cell(
+        pkg, *SHARDED_CELL, parallel=parallel
+    )
+    return record, timing
+
+
+def _timed_part(part) -> tuple[float, bytes]:
+    """CPU seconds of one part of the traffic cells and the JSON bytes of
+    its runs' ``as_dict()`` rows (timelines detached).  Garbage left by an
+    earlier part is collected before the clock starts."""
+    gc.collect()
+    c0 = time.process_time()
+    rows = []
+    for res, extra in part():
+        if res.timeline is not None:
+            res = dataclasses.replace(res, timeline=None)
+        rows.append({**extra, **res.as_dict()})
+    blob = json.dumps(rows, indent=1).encode()
+    return time.process_time() - c0, blob
+
+
+def _traffic_pass(pkg: str, make_obs, keep_trace: bool) -> tuple[float, bytes]:
+    """One pass of the traffic cells with obs off (``make_obs`` is None) or
+    armed (one ``make_obs()`` for the pass, as ``benchmarks/obs_bench.py``
+    arms ``traffic_bench.run``): CPU seconds and the rows' JSON bytes."""
+    obs = make_obs() if make_obs is not None else None
+    timed = [_timed_part(part) for part in traffic_parts(pkg, obs, keep_trace)]
+    return sum(t for t, _ in timed), b"".join(b for _, b in timed)
+
+
+def _process_tick() -> float:
+    """The smallest step of ``time.process_time`` seen while spinning."""
+    t0 = time.process_time()
+    t1 = t0
+    while t1 == t0:
+        t1 = time.process_time()
+    return t1 - t0
+
+
+def _overhead_pair(pkg: str, make_obs, keep_trace: bool, on_first: bool) -> dict:
+    """One off/armed sample pair: ``OBS_PASSES`` passes a side, alternated
+    part by part (off, on, on, off, ... or the mirror), so the host's slow
+    phases, which last about as long as a pass, weigh on both sides.  Each
+    armed pass has one ``make_obs()``.  Returns each side's CPU seconds;
+    armed and off must serialize the same bytes."""
+    cpu = {"off": 0.0, "on": 0.0}
+    for i in range(OBS_PASSES):
+        parts = zip(
+            traffic_parts(pkg, None, keep_trace),
+            traffic_parts(pkg, make_obs(), keep_trace),
+        )
+        blobs = {"off": [], "on": []}
+        for k, (off, on) in enumerate(parts):
+            order = ("on", "off") if ((i + k) % 2 == 0) == on_first else ("off", "on")
+            for side in order:
+                seconds, blob = _timed_part(on if side == "on" else off)
+                cpu[side] += seconds
+                blobs[side].append(blob)
+        check(blobs["on"] == blobs["off"], "obs: the armed run serialized other bytes")
+    return cpu
+
+
+def obs_overhead(pkg: str) -> dict:
+    """``benchmarks/obs_bench.py``'s estimator: CPU time, obs-off and armed
+    samples alternated, the minimum per side, the pool grown round by round
+    (``OBS_REPEATS`` pairs, up to ``OBS_MAX_TRIES``) until both gated ratios
+    (default path, span-source path) clear ``OBS_BUDGET``; the audit ratio
+    is measured over one round and not gated.  A sample is ``OBS_PASSES``
+    passes, interleaved with the other side's part by part, so the process
+    clock's tick and the host's slow phases stay small beside it.  No round
+    starts that would end past ``OBS_WALL_S``."""
+    obs_mod = _mod(pkg, "obs")
+    pools = {
+        "default": (False, obs_mod.Observability, {"off": [], "on": []}),
+        "spans": (True, obs_mod.Observability, {"off": [], "on": []}),
+        "audit": (
+            False, lambda: obs_mod.Observability(audit=True), {"off": [], "on": []}
+        ),
+    }
+
+    _traffic_pass(pkg, None, False)  # warm the cost caches, untimed
+    tick = _process_tick()
+    # the heap so far (torch, the goldens, the cells' results) is frozen, so
+    # no collection, timed or not, walks it again
+    gc.collect()
+    gc.freeze()
+    try:
+        rounds, wall = _overhead_rounds(pkg, pools)
+    finally:
+        gc.unfreeze()
+    out = {
+        "rounds": rounds,
+        "budget": OBS_BUDGET,
+        "passes": OBS_PASSES,
+        "tick_s": tick,
+        "wall_s": wall,
+    }
+    for name, (_, _, samples) in pools.items():
+        pair_ratios = [b / a for a, b in zip(samples["off"], samples["on"])]
+        out[name] = {
+            "ratio": _floor_ratio(samples),
+            "median_ratio": statistics.median(pair_ratios),
+            "pair_ratios": pair_ratios,
+            "cpu_off_s": min(samples["off"]),
+            "cpu_on_s": min(samples["on"]),
+            "pairs": len(samples["off"]),
+        }
+    return out
+
+
+def _floor_ratio(samples: dict) -> float:
+    """The armed side's minimum over the off side's."""
+    return min(samples["on"]) / min(samples["off"])
+
+
+def _overhead_rounds(pkg: str, pools: dict) -> tuple[int, float]:
+    """Grow ``pools`` round by round for :func:`obs_overhead`; returns the
+    rounds run and their wall seconds."""
+    start = time.perf_counter()
+    rounds = 0
+    for attempt in range(OBS_MAX_TRIES):
+        gated_s = 0.0  # wall seconds of this round's two gated pools
+        for name, (keep_trace, make, samples) in pools.items():
+            if name == "audit" and attempt:
+                continue
+            t0 = time.perf_counter()
+            for i in range(OBS_REPEATS):
+                cpu = _overhead_pair(pkg, make, keep_trace, on_first=i % 2 == 1)
+                for side, seconds in cpu.items():
+                    samples[side].append(seconds)
+            if name != "audit":
+                gated_s += time.perf_counter() - t0
+        rounds = attempt + 1
+        gated = (_floor_ratio(pools[name][2]) for name in ("default", "spans"))
+        if max(gated) <= OBS_BUDGET:
+            break
+        # a later round grows only the gated pools; start none that would
+        # end past the wall budget (the gate then fails on what was measured)
+        if time.perf_counter() - start + gated_s > OBS_WALL_S:
+            break
+    return rounds, time.perf_counter() - start
+
+
+def _check_sections(record: dict, golden: dict, path: str) -> None:
+    check(set(record) == set(golden), f"cells {sorted(record)} vs {path}")
+    for section, want in golden.items():
+        got = json.loads(json.dumps(record[section]))
+        check(got == want, f"{section}: differs from {path}")
+
+
 def serve_child() -> int:
     """The serve phase's own process: the card is hidden, the pods fork from
     a process that has never touched CUDA.  Prints its log, then one JSON
-    line ``{"serve": timing}``."""
+    line ``{"serve": timing, "resilience": timing, "obs_overhead": ...}``."""
     import repro_torch.kernels as K
 
     root = Path(__file__).resolve().parent
@@ -1013,16 +1596,66 @@ def serve_child() -> int:
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
     check(sum(launches.values()) == 0, f"the serving path launched kernels: {launches}")
-    check(set(record) == set(golden), f"serve cells {sorted(record)}")
-    for section, want in golden.items():
-        got = json.loads(json.dumps(record[section]))
-        check(got == want, f"serve {section}: differs from {SERVE_GOLDEN}")
+    _check_sections(record, golden, SERVE_GOLDEN)
     n_runs = len(record["traffic"]) + len(record["cluster"]) + len(record["armed"]) + 2
     log(f"serve: {n_runs} runs equal {SERVE_GOLDEN}, {launches}, {wall:.1f} s")
     for name in ("scale", "sharded_scale"):
         keys = ("jobs_arrived", "jobs_completed", "deadline_miss_rate")
         log(f"serve {name}: {json.dumps({k: record[name][k] for k in keys})}")
-    print(json.dumps({"serve": timing, "wall_s": wall}), flush=True)
+
+    # -- fault injection, overload control, observability ------------------
+    golden = json.loads((root / RESILIENCE_GOLDEN).read_text())
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    record, resilience = resilience_record("repro_torch")
+    overhead = obs_overhead("repro_torch")
+    resilience_wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check(
+        sum(launches.values()) == 0,
+        f"the chaos/overload/obs paths launched kernels: {launches}",
+    )
+    _check_sections(record, golden, RESILIENCE_GOLDEN)
+    log(
+        f"resilience: chaos {len(record['chaos'])}, overload {len(record['overload'])}"
+        f", obs, scale and sharded_scale cells equal {RESILIENCE_GOLDEN}, "
+        f"{launches}, {resilience_wall:.1f} s"
+    )
+    log(f"resilience trace: {json.dumps(record['obs']['trace'])}")
+    log(f"resilience scale: {json.dumps(record['scale']['chaos_report'])}")
+    obs = record["sharded_scale"]["obs"]
+    keys = ("events_recorded", "events_dropped", "events_by_kind")
+    digest = {k: obs[k] for k in keys}
+    digest["counters"] = obs["metrics"]["counters"]
+    log(f"resilience sharded_scale obs: {json.dumps(digest)}")
+    for name in ("default", "spans", "audit"):
+        r = overhead[name]
+        gate = f"budget {OBS_BUDGET}" if name != "audit" else "not gated"
+        log(
+            f"obs overhead {name}: {r['ratio']!r} ({gate}), "
+            f"median {r['median_ratio']!r}"
+            f", cpu off {r['cpu_off_s']!r} s / armed {r['cpu_on_s']!r} s"
+            f", {r['pairs']} pairs"
+        )
+    log(
+        f"obs overhead: {overhead['passes']} passes a sample, process clock tick "
+        f"{overhead['tick_s']!r} s, {overhead['rounds']} round(s) in "
+        f"{overhead['wall_s']:.1f} s (wall budget {OBS_WALL_S} s)"
+    )
+    worst = max(overhead["default"]["ratio"], overhead["spans"]["ratio"])
+    check(
+        worst <= OBS_BUDGET,
+        f"armed obs overhead {worst:.4f} over {OBS_BUDGET} after "
+        f"{overhead['rounds']} round(s)",
+    )
+    out = {
+        "serve": timing,
+        "wall_s": wall,
+        "resilience": resilience,
+        "resilience_wall_s": resilience_wall,
+        "obs_overhead": overhead,
+    }
+    print(json.dumps(out), flush=True)
     return 0
 
 

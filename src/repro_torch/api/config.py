@@ -22,11 +22,9 @@ Mixing the two spellings for the same run is rejected rather than merged.
 Two fields are sentinel-valued (``None`` = "caller said nothing"):
 ``RebalanceConfig.rebalancer`` (naming one without an interval is an error,
 even the default strategy's own name) and ``MemoryConfig.contention``
-(memory contention is strictly opt-in).
-
-The ``chaos`` and ``overload`` groups and ``obs`` are part of the surface,
-but the subsystems that arm them are not ported yet: the simulator raises
-``NotImplementedError`` when one is set (ROADMAP.md, "Modules to port").
+(memory contention is strictly opt-in).  The ``chaos`` and ``overload``
+groups and ``obs`` arm :mod:`repro_torch.chaos`, :mod:`repro_torch.overload`
+and :mod:`repro_torch.obs`.
 """
 
 from __future__ import annotations
@@ -171,14 +169,6 @@ _SERVE_KNOBS = frozenset(
         "brownout",
     }
 )
-
-
-def not_ported(knob: str, subsystem: str) -> NotImplementedError:
-    """The error an armed knob of a subsystem not ported yet raises."""
-    return NotImplementedError(
-        f"{knob} needs {subsystem}, which is not ported yet: ROADMAP.md, "
-        f"'Modules to port', item 3 (chaos, overload, obs)"
-    )
 
 
 def resolve_serve_config(config, kwargs: dict) -> tuple[ServeConfig, dict]:

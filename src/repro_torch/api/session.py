@@ -237,6 +237,41 @@ class Session:
         flat keywords of
         :class:`~repro_torch.traffic.simulator.TrafficSimulator` — one
         spelling per call, never both.
+
+        ``fairness`` (``True`` or a
+        :class:`~repro_torch.fairness.drf.ResourceModel`) arms per-tenant
+        fairness accounting (Jain index, per-model slowdown vs isolated
+        baselines, dominant-share series).
+
+        ``obs`` (``True`` or a :class:`~repro_torch.obs.Observability`) arms
+        structured tracing + the time-series metrics registry: scheduler
+        lifecycle spans, preemption/migration markers, per-node/per-tenant
+        series, back as ``ServeResult.timeline`` with terminal-render,
+        Perfetto-trace and CSV exporters.  Per-layer spans derive from
+        ``keep_trace=True`` records, so pass both for a span-level trace.
+        Pure observation: armed runs serialize the same base record.
+
+        ``faults`` (a :class:`~repro_torch.chaos.FaultPlan`, a
+        :class:`~repro_torch.chaos.FaultEvent` or a sequence of events) arms
+        seeded fault injection: crashes, blackouts, column-loss
+        degradation, bus stalls and stragglers.  ``monitor`` (default
+        :class:`~repro_torch.chaos.HealthMonitor`) detects failures at
+        dispatch boundaries; ``recovery`` (registry name or
+        :class:`~repro_torch.chaos.RecoveryPolicy`, default
+        ``retry_restart``) re-dispatches lost jobs with backoff and
+        checkpoint warm restarts.  The accounting comes back on
+        ``ServeResult.chaos``.
+
+        ``admission`` (``"static"``, ``"codel"``, ``"token_bucket"`` or an
+        :class:`~repro_torch.overload.AdmissionPolicy`) and ``brownout``
+        (``True`` or a :class:`~repro_torch.overload.BrownoutController`)
+        arm overload control: tier-aware shedding in front of the
+        dispatcher and the degrade-before-drop stage ladder.
+
+        ``memory`` (``True`` or a
+        :class:`~repro_torch.core.scheduler.ContentionModel`) arms
+        fleet-shared DRAM bandwidth contention.  Every knob left unarmed
+        keeps the serialized record byte-identical to a run without it.
         """
         from repro_torch.traffic.simulator import TrafficSimulator
 

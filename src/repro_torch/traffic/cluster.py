@@ -13,17 +13,18 @@ A serving fleet runs N systolic arrays behind a dispatcher:
 .DynamicScheduler` with admission control (``max_concurrent`` jobs
 co-resident on the array) and a bounded FIFO wait queue (``queue_cap``);
 overflow is rejected.  Nodes also expose the migration surface
-:mod:`repro_torch.traffic.rebalance` drives.  :class:`FleetLoads` keeps the
-per-node loads in a lazily rebuilt min-heap so a jsq decision is O(log N).
-
-The JAX package's nodes also carry a fault surface (fail, repair, degrade,
-speed scales) and the fleet a health exclusion; only fault injection and
-overload control drive them, and both are not ported yet.
+:mod:`repro_torch.traffic.rebalance` drives and the fault surface
+:mod:`repro_torch.chaos` and :mod:`repro_torch.overload` drive (fail,
+repair, degrade, speed scales, the brownout demand scale).
+:class:`FleetLoads` keeps the per-node loads in a lazily rebuilt min-heap so
+a jsq decision is O(log N), and excludes nodes the health monitor believes
+down from routing.
 """
 
 from __future__ import annotations
 
 import abc
+import dataclasses
 import heapq
 import random
 from typing import Callable, Optional, Sequence
@@ -64,6 +65,7 @@ class ArrayNode:
         preemption: PreemptionModel | None = None,
         on_load_change: Callable[["ArrayNode"], None] | None = None,
         check_invariants: bool = False,
+        obs=None,
         contention=None,
         shared_bandwidth=None,
     ):
@@ -86,21 +88,52 @@ class ArrayNode:
         self.array = array
         self._full = Partition(rows=array.rows, col_start=0, cols=array.cols)
         self._svc_cache: dict = {}
+        # fault state (repro_torch.chaos): `alive` is ground truth set by
+        # fault injection; `health` is the HealthMonitor's belief — dispatch
+        # acts on belief, so an undetected failure still eats jobs
+        self.alive = True
+        self.health = "healthy"
+        self.down_since = 0.0
+        self._pe_busy_carry = 0.0  # busy PE-seconds of retired schedulers
+        self._stall_carry = 0.0  # bus-stall seconds of retired schedulers
+        self._time_scale = 1.0  # straggler compute inflation
+        self._bus_scale = 1.0  # stage bus stall inflation
+        self._batch_demand_scale = 1.0  # brownout batch floor shrink
+        # constructor args retained so a fault can rebuild the scheduler
+        self._policy = policy
+        self._keep_trace = keep_trace
+        self._preemption = preemption
+        self._check_invariants = check_invariants
+        self._obs = obs
         # contention/shared_bandwidth: the fleet-shared bandwidth ledger (one
-        # SharedBandwidth across all nodes) when memory contention is armed
-        self.scheduler = DynamicScheduler(
-            array,
-            time_fn,
-            stage=stage,
-            policy=policy,
+        # SharedBandwidth across all nodes), which survives scheduler rebuilds
+        self._contention = contention
+        self._shared_bw = shared_bandwidth
+        self.scheduler = self._new_scheduler(0.0)
+
+    def _new_scheduler(self, start_time: float) -> DynamicScheduler:
+        sched = DynamicScheduler(
+            self.array,
+            self._time_fn,
+            stage=self._stage,
+            policy=self._policy,
             on_complete=self._job_done,
-            keep_trace=keep_trace,
-            preemption=preemption,
-            check_invariants=check_invariants,
-            node_index=index,
-            contention=contention,
-            shared_bandwidth=shared_bandwidth,
+            keep_trace=self._keep_trace,
+            preemption=self._preemption,
+            check_invariants=self._check_invariants,
+            obs=self._obs,
+            node_index=self.index,
+            start_time=start_time,
+            contention=self._contention,
+            shared_bandwidth=self._shared_bw,
         )
+        sched.time_scale = self._time_scale
+        sched.bus_scale = self._bus_scale
+        if self._batch_demand_scale != 1.0:
+            # brownout survives fault rebuilds, like the fault scales —
+            # guarded so fault-free runs never touch the scheduler
+            sched.set_batch_demand_scale(self._batch_demand_scale)
+        return sched
 
     @property
     def in_system(self) -> int:
@@ -109,13 +142,16 @@ class ArrayNode:
 
     @property
     def pe_seconds_busy(self) -> float:
-        """Busy PE-seconds over the node's life."""
-        return self.scheduler.pe_seconds_busy
+        """Busy PE-seconds over the node's life, work done on schedulers
+        retired by a fault included (``0.0 + x`` is IEEE-exact, so the
+        fault-free path reads the same bits)."""
+        return self._pe_busy_carry + self.scheduler.pe_seconds_busy
 
     @property
     def bus_stall_s(self) -> float:
-        """Memory-contention stall seconds over the node's life."""
-        return self.scheduler.bus.stall_s
+        """Memory-contention stall seconds over the node's life, stalls
+        booked on schedulers retired by a fault included."""
+        return self._stall_carry + self.scheduler.bus.stall_s
 
     def offer(self, job: Job) -> str:
         """Admission control at ``job.arrival``: ``"run"`` (submitted to the
@@ -215,6 +251,104 @@ class ArrayNode:
             f"{job.dnng.name!r}: queue full"
         )
 
+    # -- fault surface (driven by repro_torch.chaos and .overload) ----------
+    def _evacuate(self) -> list[tuple[Job, int]]:
+        """Pull every resident job off the node with its checkpointed
+        (completed-layer) progress: running jobs first in submit order,
+        then the FIFO queue.  Leaves queue/jobs/ready empty and banks the
+        retired scheduler's busy PE-seconds and stalls."""
+        progress = self.scheduler.progress()
+        queued = {j.dnng.name for j in self.queue}
+        lost = [
+            (job, progress.get(name, 0))
+            for name, job in self.jobs.items()
+            if name not in queued
+        ]
+        lost.extend((job, 0) for job in self.queue)
+        self.queue.clear()
+        self.jobs.clear()
+        self._ready_at.clear()
+        self._pe_busy_carry += self.scheduler.pe_seconds_busy
+        self._stall_carry += self.scheduler.bus.stall_s
+        return lost
+
+    def fail(self, now: float) -> list[tuple[Job, int]]:
+        """Kill the node at ``now``.  Every resident job is lost (returned
+        as ``(job, checkpointed_layers)``: completed layers were staged out
+        to DRAM and survive, in-flight fractions do not).  The node gets a
+        fresh empty scheduler so it can be repaired later."""
+        lost = self._evacuate()
+        self.scheduler = self._new_scheduler(now)
+        self.alive = False
+        self.down_since = now
+        self._notify_load(self)
+        return lost
+
+    def repair(self, now: float) -> None:
+        """Bring a failed node back (empty) at ``now``."""
+        self.alive = True
+        self.down_since = 0.0
+        self._notify_load(self)
+
+    def degrade(self, now: float, dead_cols: int) -> list[tuple[Job, int]]:
+        """Lose ``dead_cols`` columns at ``now``: the array shrinks, and
+        resident tenants are re-admitted onto a fresh scheduler over the
+        surviving columns.  Checkpointed layers are dropped from the
+        re-submitted graphs; returns the jobs that no longer fit (queue
+        overflow) as ``(job, done)`` pairs."""
+        if not 1 <= dead_cols < self.array.cols:
+            raise ValueError(
+                f"node {self.index} has {self.array.cols} "
+                f"columns; cannot lose {dead_cols}"
+            )
+        from repro_torch.chaos.recovery import truncate_dnng
+
+        evacuated = self._evacuate()
+        self.array = ArrayShape(rows=self.array.rows, cols=self.array.cols - dead_cols)
+        self._full = Partition(rows=self.array.rows, col_start=0, cols=self.array.cols)
+        self._svc_cache.clear()
+        self.scheduler = self._new_scheduler(now)
+        overflow: list[tuple[Job, int]] = []
+        for job, done in evacuated:
+            if done > 0:
+                job = dataclasses.replace(
+                    job, dnng=truncate_dnng(job.dnng, done, arrival_time=now)
+                )
+            if self.scheduler.n_active < self.max_concurrent:
+                self.scheduler.submit(
+                    job.dnng.clone(arrival_time=now),
+                    deadline=job.deadline,
+                    tier=job.tier,
+                )
+                self.jobs[job.dnng.name] = job
+                self._notify_submit(self, job, now)
+            elif len(self.queue) < self.queue_cap:
+                self.queue.append(job)
+                self.jobs[job.dnng.name] = job
+            else:
+                overflow.append((job, done))
+        self._notify_load(self)
+        return overflow
+
+    def set_compute_scale(self, factor: float) -> None:
+        """Straggler injection: newly launched layers run ``factor``× slower
+        (1.0 restores nominal speed)."""
+        self._time_scale = factor
+        self.scheduler.time_scale = factor
+
+    def set_bus_scale(self, factor: float) -> None:
+        """Bus-stall injection: newly acquired stage transfers take
+        ``factor``× longer (1.0 restores nominal bandwidth)."""
+        self._bus_scale = factor
+        self.scheduler.bus_scale = factor
+
+    def set_batch_demand_scale(self, factor: float) -> None:
+        """Brownout floor shrink: batch tenants' column demand scales by
+        ``factor`` (1.0 restores nominal); a fault-rebuilt scheduler
+        inherits it like the fault scales."""
+        self._batch_demand_scale = factor
+        self.scheduler.set_batch_demand_scale(factor)
+
 
 # ---------------------------------------------------------------------------
 # fleet load tracking + dispatchers
@@ -227,10 +361,18 @@ class FleetLoads:
     Nodes push load changes via their ``on_load_change`` hook; the heap
     accumulates stale entries and discards them on pop (lazy deletion), so a
     jsq decision is O(log N) amortized.  ``min_index()`` returns exactly
-    ``argmin_i (loads[i], i)`` — the linear scan's tie-break.
+    ``argmin_i (loads[i], i)`` — the linear scan's tie-break.  Nodes the
+    health monitor believes down are excluded from routing.
     """
 
-    __slots__ = ("loads", "queued", "_heap", "_queued_total")
+    __slots__ = (
+        "loads",
+        "queued",
+        "_heap",
+        "_queued_total",
+        "_excluded",
+        "_n_excluded",
+    )
 
     def __init__(self, nodes: Sequence["ArrayNode"]):
         self.loads = [n.in_system for n in nodes]
@@ -238,6 +380,8 @@ class FleetLoads:
         self._queued_total = sum(self.queued)
         self._heap = [(load, i) for i, load in enumerate(self.loads)]
         heapq.heapify(self._heap)
+        self._excluded = [False] * len(self.loads)
+        self._n_excluded = 0
 
     def update(self, node: "ArrayNode") -> None:
         """The node's ``on_load_change`` target."""
@@ -260,14 +404,49 @@ class FleetLoads:
         """Fleet-wide queue depth (the per-arrival depth sample)."""
         return self._queued_total
 
+    # -- health exclusion (driven by repro_torch.chaos.HealthMonitor) -------
+    def exclude(self, i: int) -> None:
+        """Take node ``i`` out of routing (belief: suspect or dead)."""
+        if not self._excluded[i]:
+            self._excluded[i] = True
+            self._n_excluded += 1
+
+    def readmit(self, i: int) -> None:
+        """Return node ``i`` to routing; its heap entries were consumed
+        while excluded, so push a fresh one."""
+        if self._excluded[i]:
+            self._excluded[i] = False
+            self._n_excluded -= 1
+            heapq.heappush(self._heap, (self.loads[i], i))
+
+    @property
+    def routing_loads(self) -> Sequence[float]:
+        """The load view dispatchers route on: the live ``loads`` list
+        itself while nothing is excluded (the fault-free case), else a copy
+        with excluded nodes pinned to +inf."""
+        if self._n_excluded == 0:
+            return self.loads
+        inf = float("inf")
+        return [inf if self._excluded[i] else ld for i, ld in enumerate(self.loads)]
+
     def min_index(self) -> int:
         heap = self._heap
         loads = self.loads
-        while True:
+        if self._n_excluded == 0:
+            while True:
+                load, i = heap[0]
+                if loads[i] == load:
+                    return i
+                heapq.heappop(heap)  # stale: the node's load moved on
+        excluded = self._excluded
+        while heap:
             load, i = heap[0]
-            if loads[i] == load:
+            if not excluded[i] and loads[i] == load:
                 return i
-            heapq.heappop(heap)  # stale: the node's load moved on
+            heapq.heappop(heap)  # stale, or excluded (readmit re-pushes)
+        # every node excluded: fall back to the linear argmin so routing
+        # still returns a target (the dispatch then fails realistically)
+        return min(range(len(loads)), key=lambda i: (loads[i], i))
 
 
 class Dispatcher(abc.ABC):
@@ -281,8 +460,10 @@ class Dispatcher(abc.ABC):
 
     def choose_tracked(self, fleet: FleetLoads, rng: random.Random) -> int:
         """Like :meth:`choose`, reading a maintained :class:`FleetLoads`.
-        Must be decision-identical to ``choose``, rng draws included."""
-        return self.choose(fleet.loads, rng)
+        Must be decision-identical to ``choose``, rng draws included.  Routes
+        on ``routing_loads``, so health-excluded nodes (pinned to +inf) lose
+        every load comparison."""
+        return self.choose(fleet.routing_loads, rng)
 
 
 _REGISTRY = Registry("dispatcher")

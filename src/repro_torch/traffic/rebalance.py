@@ -75,6 +75,9 @@ class Rebalancer(abc.ABC):
     def __init__(self, migration: MigrationModel | None = None):
         self.migration = migration or MigrationModel()
         self.n_migrations = 0
+        # optional repro_torch.obs.Observability, set by the traffic
+        # simulator; strategies emit a "migrate" instant per move through it
+        self.obs = None
 
     @abc.abstractmethod
     def rebalance(self, nodes: Sequence, now: float, periodic: bool = False) -> int:
@@ -132,6 +135,8 @@ class MigrateOnPressure(Rebalancer):
         for node in nodes:
             if node is src:
                 continue
+            if not node.alive or node.health != "healthy":
+                continue  # never migrate onto a failed/suspect node
             if node.scheduler.n_active >= node.max_concurrent:
                 continue
             key = (node.in_system, node.index)
@@ -146,6 +151,15 @@ class MigrateOnPressure(Rebalancer):
         delay = self.migration.migrate_s(job.dnng)
         target.admit_migrated(job, now, ready_at=now + delay)
         self.n_migrations += 1
+        tracer = getattr(self.obs, "tracer", None)
+        if tracer is not None:
+            tracer.instant(
+                "migrate",
+                now,
+                target.index,
+                name,
+                (("src", src.index), ("dst", target.index), ("delay_s", delay)),
+            )
         return True
 
     # -- the strategy -------------------------------------------------------

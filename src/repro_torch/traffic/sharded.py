@@ -32,17 +32,26 @@ The design is bulk-synchronous with *replicated routing*:
 Not supported here: cross-node migration and ``keep_trace``.
 
 **Failure surface.**  Every epoch message a pod sends carries the jobs it
-finalized (completed or rejected) during that epoch; the coordinator keeps
-them in an :class:`_EpochLedger`.  When a pod dies, or sends nothing within
+finalized (completed or rejected) during that epoch, its depth-sample slice
+and its boundary busy vector; the coordinator keeps them in an
+:class:`_EpochLedger`.  When a pod dies, or sends nothing within
 ``pod_timeout_s``, the raised :class:`PodFailureError` carries a
-partial-result payload instead of hanging the sync.  Pod-kill fault plans
-and pod respawn need the fault-injection subsystem, which is not ported yet.
+partial-result payload instead of hanging the sync.  With ``respawn=True``
+(and a ``pod_kill`` plan) the coordinator builds a replacement pod,
+fast-forwards its routing replica over the dead pod's completed epochs,
+re-admits the lost in-flight jobs through the seeded retry path
+(:func:`repro_torch.chaos.respawn_backoffs`) and resumes the epoch protocol.
+The serial path mirrors the same recovery, so serial and forked runs stay
+byte-identical through a kill.  Lost with the pod, by design: its in-flight
+partial work and its private observability replica.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 import multiprocessing
+import os
 import random
 import time
 from typing import Sequence
@@ -110,6 +119,12 @@ class _RoutedLoads:
         self.loads[i] += 1
         heapq.heappush(self._heap, (self.loads[i], i))
 
+    @property
+    def routing_loads(self) -> Sequence[int]:
+        # FleetLoads surface (Dispatcher.choose_tracked routes on it); pods
+        # have no health exclusion, so it is the plain view
+        return self.loads
+
     def min_index(self) -> int:
         heap = self._heap
         loads = self.loads
@@ -140,6 +155,8 @@ class _Pod:
         seed: int,
         preemption,
         check_invariants: bool,
+        obs_cfg=None,
+        kill_at_epoch: int | None = None,
     ):
         from repro_torch.api.backend import resolve_backend
         from repro_torch.api.policy import resolve_policy
@@ -147,10 +164,24 @@ class _Pod:
         self.base = base
         self.count = count
         self.jobs = jobs
+        self.kill_at_epoch = kill_at_epoch  # pod_kill fault
         bk = resolve_backend(backend)
         pol = resolve_policy(policy)
         time_fn = bk.time_fn()
         stage = bk.stage_model()
+        # pod-local observability: each pod owns a private bundle built from
+        # the coordinator's arm flags (an object could not cross fork + pipe),
+        # folded back through finish()["obs"] and merged by the coordinator
+        self.obs = None
+        self._tracer = None
+        self._registry = None
+        self._node_series = None
+        if obs_cfg is not None:
+            from repro_torch.obs import Observability
+
+            self.obs = Observability(**obs_cfg)
+            self._tracer = self.obs.tracer
+            self._registry = self.obs.registry
         self.nodes = [
             ArrayNode(
                 base + i,
@@ -165,9 +196,19 @@ class _Pod:
                 preemption=preemption,
                 on_load_change=self._on_load_change,
                 check_invariants=check_invariants,
+                obs=self.obs,
             )
             for i in range(count)
         ]
+        if self._registry is not None:
+            reg = self._registry
+            self._node_series = [
+                (
+                    reg.series(f"node{base + i}.in_system"),
+                    reg.series(f"node{base + i}.queue_depth"),
+                )
+                for i in range(count)
+            ]
         self.dispatcher = resolve_dispatcher(dispatch)
         self.rng = random.Random(seed)
         self.view = _RoutedLoads(n_arrays)
@@ -176,8 +217,10 @@ class _Pod:
         self._builders: list = []  # (global job idx, builder)
         self._by_name: dict = {}
         self.depth_samples: list[int] = []
-        # builders not yet reported to the epoch ledger as finalized
+        # epoch-ledger shipping state: builders not yet reported as
+        # finalized, and how many depth samples have crossed the pipe
         self._pending: list = []  # (global job idx, builder)
+        self._depth_sent = 0
 
     # -- node callbacks (same wiring as TrafficSimulator) -------------------
     def _on_complete(self, node, tenant: str, t: float) -> None:
@@ -220,15 +263,30 @@ class _Pod:
                 self._builders.append((idx, b))
                 self._pending.append((idx, b))
                 self._by_name[job.dnng.name] = b
-                if self.nodes[target - base].offer(job) != "rejected":
+                status = self.nodes[target - base].offer(job)
+                if status != "rejected":
                     b.array = target
+                # owned arrivals only: each dispatch is emitted by exactly
+                # one pod, so merged counters/traces match a global view
+                if self._tracer is not None:
+                    args = (("status", status), ("tier", job.tier))
+                    name = job.dnng.name
+                    self._tracer.instant("dispatch", job.arrival, target, name, args)
+                if self._registry is not None:
+                    self._registry.counter("serve.arrivals").inc()
+                    self._registry.counter(f"serve.dispatch.{status}").inc()
+                    for node, (s_in, s_q) in zip(self.nodes, self._node_series):
+                        s_in.sample(job.arrival, node.in_system)
+                        s_q.sample(job.arrival, len(node.queue))
             self.depth_samples.append(self._queued_total)
         return self._epoch_msg()
 
     def _epoch_msg(self) -> dict:
         """The boundary message: loads for the next snapshot + the ledger
-        payload.  A builder is finalized once its outcome can no longer
-        change — completed, or rejected at admission (``array`` never set)."""
+        payload (newly finalized records, the depth-sample slice, boundary
+        busy/preemption state).  A builder is finalized once its outcome can
+        no longer change — completed, or rejected at admission (``array``
+        never set)."""
         done, still = [], []
         for item in self._pending:
             b = item[1]
@@ -237,13 +295,78 @@ class _Pod:
             else:
                 still.append(item)
         self._pending = still
-        return {"loads": [n.in_system for n in self.nodes], "final": done}
+        depth = self.depth_samples[self._depth_sent :]
+        self._depth_sent = len(self.depth_samples)
+        return {
+            "loads": [n.in_system for n in self.nodes],
+            "busy": [n.pe_seconds_busy for n in self.nodes],
+            "final": done,
+            "depth": depth,
+            "preemptions": sum(n.scheduler.n_preemptions for n in self.nodes),
+        }
+
+    # -- respawn surface (driven by the coordinator) ------------------------
+    def fast_forward(self, history: Sequence[tuple]) -> list[int]:
+        """Replay the routing decisions of completed epochs — no execution,
+        no builders, no depth samples — so this fresh pod's dispatcher state
+        and rng stream end where the dead pod's were at the failure
+        boundary.  ``history`` is the coordinator's ``(lo, hi, snapshot)``
+        list; returns the global job indices this pod owned over those
+        epochs (the lost-job candidates, before the ledger's filter)."""
+        owned = []
+        base, count = self.base, self.count
+        for lo, hi, snapshot in history:
+            self.view.reset(snapshot)
+            for idx in range(lo, hi):
+                target = self.dispatcher.choose_tracked(self.view, self.rng)
+                self.view.bump(target)
+                if base <= target < base + count:
+                    owned.append(idx)
+        return owned
+
+    def inject_lost(self, lost: Sequence[int], floor: float, seed_key: str) -> None:
+        """Re-admit the dead pod's in-flight jobs through the retry path.
+
+        Each lost job gets one fresh attempt with a seeded first-attempt
+        backoff (:func:`repro_torch.chaos.respawn_backoffs`), released no
+        earlier than the failure boundary (``floor``), placed on the
+        least-loaded owned node (ties to the lowest index).  The record
+        keeps the job's original arrival and deadline, so its latency
+        includes the downtime + backoff."""
+        from repro_torch.chaos import respawn_backoffs
+
+        delays = respawn_backoffs(len(lost), seed_key)
+        for idx, delay in zip(lost, delays):
+            job = self.jobs[idx]
+            t = max(job.arrival, floor) + delay
+            retry = dataclasses.replace(
+                job, arrival=t, dnng=job.dnng.clone(arrival_time=t)
+            )
+            b = _RecordBuilder(job)
+            self._builders.append((idx, b))
+            self._pending.append((idx, b))
+            self._by_name[job.dnng.name] = b
+            node = min(self.nodes, key=lambda n: (n.in_system, n.index))
+            if node.offer(retry) != "rejected":
+                b.array = node.index
 
     def finish(self) -> dict:
         """Drain all owned queues and fold the pod's results."""
         for node in self.nodes:
             node.scheduler.run()
+        if self._registry is not None:
+            reg = self._registry
+            reg.counter("sched.events").inc(
+                sum(n.scheduler.n_events for n in self.nodes)
+            )
+            reg.counter("sched.preemptions").inc(
+                sum(n.scheduler.n_preemptions for n in self.nodes)
+            )
+            reg.counter("sched.completions").inc(
+                sum(1 for _idx, b in self._builders if b.completed is not None)
+            )
         return {
+            "obs": self.obs.state() if self.obs is not None else None,
             "records": [(idx, b.build()) for idx, b in self._builders],
             "depth_samples": self.depth_samples,
             # per-node, not pre-summed: the coordinator adds them flat in
@@ -260,8 +383,13 @@ def _pod_worker(pod: _Pod, epochs, conn) -> None:
     materialized job list arrive via ``fork`` (copy-on-write), so only the
     per-epoch snapshots and the final fold cross the pipe."""
     try:
-        for lo, hi in epochs:
+        for ei, (lo, hi) in enumerate(epochs):
             snapshot = conn.recv()
+            if ei == pod.kill_at_epoch:
+                # pod_kill fault: hard process death mid-epoch — no message
+                # crosses the pipe, the coordinator must notice the dead
+                # worker itself (ShardedTrafficSimulator._recv)
+                os._exit(13)
             conn.send(pod.run_epoch(lo, hi, snapshot))
         conn.send(pod.finish())
     except BaseException as exc:  # surface the failure, don't hang the sync
@@ -272,15 +400,26 @@ def _pod_worker(pod: _Pod, epochs, conn) -> None:
 
 
 class _EpochLedger:
-    """What the coordinator durably knows per pod, epoch by epoch — the
-    :class:`PodFailureError` partial payload."""
+    """What the coordinator durably knows per pod, epoch by epoch: the
+    :class:`PodFailureError` partial payload, and for the respawn path the
+    finalized-index filter, the routing-replay history and the boundary
+    busy/preemption carry."""
 
     def __init__(self, n_pods: int):
         self.records = [[] for _ in range(n_pods)]  # finalized (idx, rec)
+        self.final_idx = [set() for _ in range(n_pods)]
+        self.depth = [[] for _ in range(n_pods)]  # shipped depth samples
+        self.busy = [None] * n_pods  # last boundary busy vector
+        self.preemptions = [0] * n_pods  # last boundary count
         self.epochs_done = [0] * n_pods
+        self.history: list[tuple] = []  # (lo, hi, snapshot)
 
     def note(self, pi: int, msg: dict) -> None:
         self.records[pi].extend(msg["final"])
+        self.final_idx[pi].update(idx for idx, _r in msg["final"])
+        self.depth[pi].extend(msg["depth"])
+        self.busy[pi] = msg["busy"]
+        self.preemptions[pi] = msg["preemptions"]
         self.epochs_done[pi] += 1
 
 
@@ -296,8 +435,21 @@ class ShardedTrafficSimulator:
     ``pod_timeout_s`` bounds every wait on a pod: a pod that dies, or sends
     nothing for that long, raises :class:`PodFailureError`.
 
-    ``obs``, ``faults`` (pod-kill plans) and ``respawn`` need subsystems that
-    are not ported yet; arming one raises ``NotImplementedError``.
+    ``obs`` (``True`` or a :class:`~repro_torch.obs.Observability`) arms a
+    private tracer/registry replica per pod (same arm flags and caps); the
+    coordinator merges their states into one ``ServeResult.timeline`` —
+    counters add, series interleave, trace rings merge by timestamp.  Each
+    pod counts its owned arrivals only, so merged totals match a global
+    view.
+
+    ``faults`` takes a :mod:`repro_torch.chaos` plan of ``pod_kill`` events
+    only (``node`` = pod index, ``epoch`` = sync epoch): the worker dies
+    hard mid-epoch, and the coordinator raises :class:`PodFailureError`
+    within ``pod_timeout_s``; the serial path raises the same error at the
+    same epoch.  ``respawn=True`` turns the abort into recovery: the pod is
+    rebuilt from the last boundary and the run completes, serial and forked
+    byte-identical.  An armed plan that never fires leaves the result
+    byte-identical to a fault-free run.
     """
 
     def __init__(
@@ -322,7 +474,6 @@ class ShardedTrafficSimulator:
         respawn: bool = False,
         **arrival_kwargs,
     ):
-        from repro_torch.api.config import not_ported
         from repro_torch.core.scheduler import PreemptionModel
 
         names = (("policy", policy), ("backend", backend), ("dispatch", dispatch))
@@ -368,15 +519,41 @@ class ShardedTrafficSimulator:
         if pod_timeout_s <= 0:
             raise ValueError(f"pod_timeout_s must be positive, got {pod_timeout_s}")
         self.pod_timeout_s = pod_timeout_s
+        # pod_kill fault injection: e.node indexes the pod, e.epoch the sync
+        # epoch the worker dies in (in-fleet faults need TrafficSimulator)
+        self._kill_epochs: dict[int, int] = {}
+        self._plan_name = None
         if faults is not None:
-            raise not_ported("faults=", "chaos")
-        if respawn:
+            from repro_torch.chaos import resolve_faults
+
+            plan = resolve_faults(faults)
+            self._plan_name = plan.name
+            for e in plan.events:
+                if e.kind != "pod_kill":
+                    raise ValueError(
+                        f"sharded runs only support pod_kill faults, got "
+                        f"{e.kind!r}; use TrafficSimulator faults= for "
+                        f"in-fleet fault injection"
+                    )
+                if not 0 <= e.node < n_shards:
+                    raise ValueError(
+                        f"pod_kill targets pod {e.node}, run has {n_shards} shards"
+                    )
+                cur = self._kill_epochs.get(e.node)
+                if cur is None or e.epoch < cur:
+                    self._kill_epochs[e.node] = e.epoch
+        self.respawn = bool(respawn)
+        if respawn and faults is None:
             raise ValueError(
                 "respawn=True has no effect without faults=; pass a "
                 "pod_kill FaultPlan to arm pod respawn"
             )
+        # coordinator-side bundle: the pods' private replicas fold into it
+        self._obs = None
         if obs:
-            raise not_ported("obs=", "obs")
+            from repro_torch.obs import resolve_obs
+
+            self._obs = resolve_obs(obs)
 
     # -- pod/epoch layout ---------------------------------------------------
     def _pod_spans(self) -> list[tuple[int, int]]:
@@ -388,7 +565,20 @@ class ShardedTrafficSimulator:
         e = self.sync_every
         return [(lo, min(lo + e, n_jobs)) for lo in range(0, n_jobs, e)]
 
-    def _make_pod(self, base: int, count: int, jobs) -> _Pod:
+    def _make_pod(self, pod_index: int, base: int, count: int, jobs) -> _Pod:
+        obs_cfg = None
+        if self._obs is not None:
+            o = self._obs
+            obs_cfg = {
+                "tracer": o.tracer is not None,
+                "metrics": o.registry is not None,
+                "audit": bool(o.audit),
+                "max_events": o.tracer.max_events if o.tracer is not None else 65536,
+                "max_samples": (
+                    o.registry.max_samples if o.registry is not None else 4096
+                ),
+                "sample_every": o.sample_every,
+            }
         return _Pod(
             base,
             count,
@@ -402,54 +592,79 @@ class ShardedTrafficSimulator:
             seed=self.seed,
             preemption=self.preemption,
             check_invariants=self.check_invariants,
+            obs_cfg=obs_cfg,
+            kill_at_epoch=self._kill_epochs.get(pod_index),
         )
 
     # -- execution ----------------------------------------------------------
     def run(self) -> ServeResult:
         jobs = list(self.arrivals)
         epochs = self._epochs(len(jobs))
-        pods = [self._make_pod(base, count, jobs) for base, count in self._pod_spans()]
+        pods = [
+            self._make_pod(pi, base, count, jobs)
+            for pi, (base, count) in enumerate(self._pod_spans())
+        ]
         self._ledger = _EpochLedger(self.n_shards)
+        # pod index -> pre-death carry spliced into the fold (set only when
+        # a respawn fired; empty = unchanged result shape)
+        self._respawned: dict[int, dict] = {}
         use_fork = (
             self.parallel
             and self.n_shards > 1
             and "fork" in multiprocessing.get_all_start_methods()
         )
         if use_fork:
-            folds = self._run_forked(pods, epochs)
+            folds = self._run_forked(pods, epochs, jobs)
         else:
-            folds = self._run_serial(pods, epochs)
+            folds = self._run_serial(pods, epochs, jobs)
         return self._fold(jobs, folds)
 
-    def _run_serial(self, pods, epochs) -> list[dict]:
+    def _run_serial(self, pods, epochs, jobs) -> list[dict]:
         ledger = self._ledger
         snapshot = [0] * self.n_arrays
-        for lo, hi in epochs:
+        for ei, (lo, hi) in enumerate(epochs):
+            ledger.history.append((lo, hi, list(snapshot)))
             nxt: list[int] = []
             for pi, pod in enumerate(pods):
+                if ei == pod.kill_at_epoch:
+                    if not self.respawn:
+                        # the forked path's failure surface: the epoch sync
+                        # cannot complete once a pod is gone
+                        raise self._pod_failure(
+                            f"sharded pod {pi} died at epoch {ei} (pod_kill fault)",
+                            pi,
+                            ei,
+                        )
+                    pods[pi] = pod = self._respawn_pod(
+                        pi, ei, jobs, floor=jobs[lo].arrival
+                    )
                 msg = pod.run_epoch(lo, hi, snapshot)
                 ledger.note(pi, msg)
                 nxt.extend(msg["loads"])
             snapshot = nxt
         return [pod.finish() for pod in pods]
 
-    def _run_forked(self, pods, epochs) -> list[dict]:
+    def _run_forked(self, pods, epochs, jobs) -> list[dict]:
         ctx = multiprocessing.get_context("fork")
         ledger = self._ledger
         conns, procs = [], []
         done = False
+
+        def spawn(pod, eps):
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_pod_worker, args=(pod, eps, child), daemon=True)
+            p.start()
+            child.close()  # parent keeps its end only
+            return parent, p
+
         try:
             for pod in pods:
-                parent, child = ctx.Pipe()
-                p = ctx.Process(
-                    target=_pod_worker, args=(pod, epochs, child), daemon=True
-                )
-                p.start()
-                child.close()  # parent keeps its end only
-                conns.append(parent)
+                conn, p = spawn(pod, epochs)
+                conns.append(conn)
                 procs.append(p)
             snapshot = [0] * self.n_arrays
             for ei, (lo, hi) in enumerate(epochs):
+                ledger.history.append((lo, hi, list(snapshot)))
                 for pi, conn in enumerate(conns):
                     try:
                         conn.send(snapshot)
@@ -462,10 +677,28 @@ class ShardedTrafficSimulator:
                         ) from None
                 nxt: list[int] = []
                 for pi in range(len(conns)):
-                    msg = self._recv(conns[pi], procs[pi], pi, ei)
+                    try:
+                        msg = self._recv(conns[pi], procs[pi], pi, ei)
+                    except PodFailureError:
+                        if not self.respawn:
+                            raise
+                        # the pod died at (or timed out across) this
+                        # boundary: stop the corpse, rebuild the pod from
+                        # ledger state in-process, and hand the replacement
+                        # to a fresh worker that replays this epoch
+                        if procs[pi].is_alive():
+                            procs[pi].kill()
+                        procs[pi].join(timeout=_JOIN_TIMEOUT_S)
+                        conns[pi].close()
+                        pod = self._respawn_pod(pi, ei, jobs, floor=jobs[lo].arrival)
+                        conns[pi], procs[pi] = spawn(pod, epochs[ei:])
+                        conns[pi].send(snapshot)
+                        msg = self._recv(conns[pi], procs[pi], pi, ei)
                     ledger.note(pi, msg)
                     nxt.extend(msg["loads"])
                 snapshot = nxt
+            # the final fold: a death here (during finish) is past the last
+            # boundary — nothing left to respawn for, so it raises
             folds = [
                 self._recv(conn, procs[pi], pi, len(epochs))
                 for pi, conn in enumerate(conns)
@@ -545,9 +778,46 @@ class ShardedTrafficSimulator:
             partial_records=records,
         )
 
+    def _respawn_pod(self, pi: int, ei: int, jobs, *, floor: float) -> _Pod:
+        """Rebuild pod ``pi`` from the last epoch-boundary state.
+
+        The replacement is constructed exactly like the original (same
+        seeds), fast-forwarded over the dead pod's completed epochs, and
+        handed the lost in-flight jobs through the retry path.  The
+        pre-death finalized records, depth slices and boundary busy are
+        frozen here and spliced back in at fold time — work the dead pod
+        durably reported is never re-run."""
+        led = self._ledger
+        base, count = self._pod_spans()[pi]
+        pod = self._make_pod(pi, base, count, jobs)
+        pod.kill_at_epoch = None  # the plan fires once per pod
+        owned = pod.fast_forward(led.history[:ei])
+        done = led.final_idx[pi]
+        lost = [idx for idx in owned if idx not in done]
+        pod.inject_lost(lost, floor, f"respawn:{self.seed}:{pi}:{ei}")
+        self._respawned[pi] = {
+            "records": list(led.records[pi]),
+            "depth": list(led.depth[pi]),
+            "busy": list(led.busy[pi] or [0.0] * count),
+            "preemptions": led.preemptions[pi],
+            "epoch": ei,
+            "lost": len(lost),
+        }
+        return pod
+
     def _fold(self, jobs, folds: list[dict]) -> ServeResult:
         from repro_torch.api.backend import resolve_backend
 
+        # splice each respawned pod's pre-death carry (the ledger's durable
+        # view) in front of the replacement's fold, so the merged result
+        # covers every owned job once: finalized pre-death via the carry,
+        # lost in-flight via the retry injection, the rest via the new pod
+        for pi, carry in self._respawned.items():
+            f = folds[pi]
+            f["records"] = carry["records"] + f["records"]
+            f["depth_samples"] = carry["depth"] + f["depth_samples"]
+            f["pe_busy"] = [c + b for c, b in zip(carry["busy"], f["pe_busy"])]
+            f["preemptions"] += carry["preemptions"]
         indexed = sorted(
             (pair for f in folds for pair in f["records"]), key=lambda p: p[0]
         )
@@ -574,6 +844,14 @@ class ShardedTrafficSimulator:
             preemptions=sum(f["preemptions"] for f in folds),
             fairness=fairness,
         )
+        timeline = None
+        if self._obs is not None:
+            for f in folds:
+                if f.get("obs") is not None:
+                    self._obs.absorb(f["obs"])
+            from repro_torch.obs import Timeline
+
+            timeline = Timeline(self._obs)
         return ServeResult(
             policy=self.policy_name,
             backend=self.backend_name,
@@ -586,6 +864,11 @@ class ShardedTrafficSimulator:
                 type(self.preemption).__name__ if self.preemption is not None else None
             ),
             fairness=fairness,
+            timeline=timeline,
+            # set only when a respawn fired: an armed plan that never fires
+            # stays byte-identical to a fault-free run
+            faults=self._plan_name if self._respawned else None,
+            recovery="pod_respawn" if self._respawned else None,
         )
 
     def _fairness_report(self, jobs, records):

@@ -531,42 +531,33 @@ class TestFusedTenantGemm:
             np.testing.assert_allclose(o.numpy(), np.asarray(jo), **TOL["float32"])
 
     def test_record_gemm_stats_names_match_jax(self):
-        class Registry:
-            def __init__(self):
-                self.seen = {}
-
-            def _metric(self, name):
-                reg = self
-
-                class M:
-                    def inc(self, n=1):
-                        reg.seen[name] = reg.seen.get(name, 0) + n
-
-                    def set(self, v):
-                        reg.seen[name] = v
-
-                    def observe(self, v):
-                        reg.seen.setdefault(name, []).append(v)
-
-                return M()
-
-            counter = gauge = histogram = _metric
+        """Both packages' stats land in their own ``MetricsRegistry`` under
+        the same names and values."""
+        from repro.obs import MetricsRegistry as JaxRegistry
+        from repro_torch.obs import MetricsRegistry
 
         xs, ws = _ragged_operands(8, self.SHAPES)
         kw = dict(block_t=64, block_k=64, block_n=64, return_stats=True)
-        _, stats = fused_tenant_gemm(
-            [torch.from_numpy(x) for x in xs], [torch.from_numpy(w) for w in ws], **kw
-        )
-        _, jstats = jax_fused(
-            [jnp.asarray(x) for x in xs],
-            [jnp.asarray(w) for w in ws],
-            interpret=True,
-            **kw,
-        )
-        mine, theirs = Registry(), Registry()
-        record_gemm_stats(mine, stats)
-        jax_record(theirs, jstats)
-        assert mine.seen == theirs.seen and "kernel.gemm.blocks_live" in mine.seen
+        mine, theirs = MetricsRegistry(), JaxRegistry()
+        for mode in ("dense", "compact"):
+            _, stats = fused_tenant_gemm(
+                [torch.from_numpy(x) for x in xs],
+                [torch.from_numpy(w) for w in ws],
+                grid_mode=mode,
+                **kw,
+            )
+            _, jstats = jax_fused(
+                [jnp.asarray(x) for x in xs],
+                [jnp.asarray(w) for w in ws],
+                interpret=True,
+                grid_mode=mode,
+                **kw,
+            )
+            record_gemm_stats(mine, stats)
+            jax_record(theirs, jstats)
+        assert json.dumps(mine.as_dict()) == json.dumps(theirs.as_dict())
+        assert mine.counters["kernel.gemm.calls"].value == 2
+        assert "kernel.gemm.blocks_live" in mine.counters
 
 
 def _int_dtype(pm, fused, z):

@@ -72,13 +72,30 @@ SERVE_PATH = [
     "traffic/simulator.py",
 ]
 
+# fault injection, overload control and observability: host Python, no kernel
+RESILIENCE_PATH = [
+    "chaos/__init__.py",
+    "chaos/controller.py",
+    "chaos/faults.py",
+    "chaos/monitor.py",
+    "chaos/recovery.py",
+    "obs/__init__.py",
+    "obs/export.py",
+    "obs/registry.py",
+    "obs/render.py",
+    "obs/tracer.py",
+    "overload/__init__.py",
+    "overload/admission.py",
+    "overload/brownout.py",
+]
+
 
 def test_scan_sees_every_module():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    for rel in PAPER_PATH + SERVE_PATH:
+    for rel in PAPER_PATH + SERVE_PATH + RESILIENCE_PATH:
         assert os.path.join(PORT, *rel.split("/")) in files, rel
-    assert len(files) >= 43
+    assert len(files) >= 56
 
 
 def test_front_door_imports_no_jax_and_no_repro():
@@ -92,6 +109,13 @@ def test_front_door_imports_no_jax_and_no_repro():
         "assert res.partitioned.makespan > 0\n"
         "srv = Session('drf').serve('poisson', rate=2e3, horizon=0.01, fairness=True)\n"
         "assert srv.metrics.jobs_arrived > 0\n"
+        "from repro_torch import FaultPlan\n"
+        "plan = FaultPlan.single('crash', t=0.004, node=1)\n"
+        "srv = Session('equal').serve('poisson', rate=4e3, horizon=0.01, n_arrays=2,"
+        " faults=plan, brownout=True, admission='codel', obs=True)\n"
+        "assert srv.chaos.faults_injected == 1 and srv.timeline.chrome_trace()\n"
+        "from repro_torch.obs.render import snapshot_host_caches\n"
+        "assert 'kernel.autotune.hits' in snapshot_host_caches().counters\n"
         "assert Session('equal', 'mesh').run('light').partitioned.makespan > 0\n"
         "assert len(repro_torch.api.list_policies()) == 9\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -4,6 +4,7 @@ workloads, held equal with ``==`` (no tolerance), the golden seed traces
 hex for hex, the registries, and the Fig. 9 report text.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -329,12 +330,26 @@ def test_workloads_read_at_call_time(monkeypatch):
 
 
 def test_serve_names_its_roadmap_item():
-    """Serving runs; a knob whose subsystem is not ported yet names the
-    ROADMAP item that ports it."""
+    """Serving runs, and ``Session().serve(..., obs=True)`` (once a knob
+    whose subsystem was not ported) equals the JAX package's run, its
+    timeline digest and Perfetto trace included."""
     res = P.Session().serve("poisson", rate=2000.0, horizon=0.01)
     assert res.metrics.jobs_arrived > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 3"):
-        P.Session().serve("poisson", rate=10.0, horizon=1.0, obs=True)
+    kw = dict(rate=3000.0, horizon=0.01, obs=True, keep_trace=True)
+    runs = []
+    for pkg, api in (("repro_torch", P), ("repro", J)):
+        # the oracle-calls-per-event gauge reads process-global caches
+        df = importlib.import_module(f"{pkg}.core.dataflow")
+        systolic = importlib.import_module(f"{pkg}.sim.systolic")
+        df.ws_cost_cache_clear()
+        systolic.layer_cost.cache_clear()
+        systolic._BatchTimeOracle.clear_all()
+        runs.append(api.Session().serve("poisson", **kw))
+    mine, theirs = runs
+    assert json.dumps(mine.as_dict()) == json.dumps(theirs.as_dict())
+    assert "obs" in mine.as_dict()
+    trace = mine.timeline.chrome_trace()
+    assert json.dumps(trace) == json.dumps(theirs.timeline.chrome_trace())
 
 
 def test_top_level_lazy_exports():
