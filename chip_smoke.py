@@ -34,6 +34,17 @@ check:
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
    decode step is also checked against the CPU on the smoke config.
+   Families: the smoke configs of phi3.5-moe, dbrx, mamba2, recurrentgemma
+   and whisper decode ragged steps (a random live set, the hybrid's ring
+   wrapping) on the card and on the CPU within 3e-2; then one
+   ``MultiTenantEngine`` on the card serves four tenants at their published
+   widths, random bf16 weights: mamba2-780m, recurrentgemma-2b and
+   whisper-small at full depth, phi3.5-moe-42b-a6.6b at 16 of its 32
+   layers (the whole model does not fit beside the others), 3 requests
+   each, to completion.  Per tenant: tokens/s, rounds, decode-step host,
+   profiled and device ms, busy share, the bytes one step must move over
+   3.35 TB/s, resident and peak memory, init s.  No partitioned-GEMM
+   kernel is launched (checked), and the phase fits in 120 s.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -83,6 +94,12 @@ check:
 The last lines are the kernels' JSON record, the card line, and
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits non-zero
 and prints no result.
+
+    python3 chip_smoke.py --obs-split
+
+needs no card and is not part of the run above: it prints where the armed
+side of the obs overhead pair spends its time, part by part and module by
+module (:func:`obs_split`).
 """
 
 from __future__ import annotations
@@ -130,6 +147,8 @@ PAPER_POLICIES = [
 GOLDEN = "tests/data/seed_trace_{}.json"
 SERVE_GOLDEN = "tests/data/serve_golden.json"
 SERVE_FLAG = "--serve-phase"  # the child process of the serve phase
+OBS_SPLIT_FLAG = "--obs-split"  # the armed side's time by part (not run by default)
+OBS_SPLIT_PASSES = 16
 # the whole serve phase, child included: its cells take under a minute on the
 # card's host, and the obs overhead pair starts no round past OBS_WALL_S
 SERVE_TIMEOUT_S = 960
@@ -146,6 +165,26 @@ MESH_TOLERANCE = 2.0  # a measured constant this far off its default fails
 MESH_REPEATS = 7
 SPIN_CYCLES = 20_000_000  # a spin kernel that holds the stream for ~10 ms
 H2D_BYTES = 256 << 20
+# the families phase: one tenant per family at its published width, beside
+# the smoke configs checked card against CPU; phi3.5-moe keeps 16 of its 32
+# layers (the whole model, 83.7 GB in bf16, does not fit beside the others)
+FAMILY_TENANTS = (
+    ("mamba2-780m", None),
+    ("recurrentgemma-2b", None),
+    ("whisper-small", None),
+    ("phi3.5-moe-42b-a6.6b", 16),
+)
+FAMILY_SMOKES = (
+    "phi3.5-moe-42b-a6.6b",
+    "dbrx-132b",
+    "mamba2-780m",
+    "recurrentgemma-2b",
+    "whisper-small",
+)
+SMOKE_STEPS = 8  # card-vs-CPU decode steps of each smoke config
+FAMILY_SLOTS, FAMILY_MAX_SEQ = 4, 128
+FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW = 3, 8, 16
+FAMILY_PHASE_S = 120.0
 TPU_KERNEL = {
     "dense": "src/repro/kernels/partitioned_matmul.py:261",
     "compact": "src/repro/kernels/partitioned_matmul.py:335",
@@ -596,31 +635,12 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
 def serving_phase(torch) -> dict:
     from repro_torch.configs import get
     from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
-    from repro_torch.models.model import decode_step, init_cache, init_params
+    from repro_torch.models.model import decode_step, init_params
     from repro_torch.serving.engine import MultiTenantEngine
     from repro_torch.serving.kv_cache import DecodeSession
 
     spec = get("llama3.2-3b")
-
-    # the decode step on the card against the same step on the CPU
-    smoke = spec.smoke
-    cpu_params = init_params(smoke, 0, device="cpu")
-    gpu_params = _tree_to(cpu_params, "cuda")
-    caches = init_cache(smoke, 3, 16, device="cpu"), init_cache(smoke, 3, 16)
-    rng = np.random.default_rng(1)
-    lens = np.array([0, 2, 5])
-    for _ in range(4):
-        tok = torch.from_numpy(rng.integers(0, smoke.vocab, (3, 1)))
-        ref, _ = decode_step(smoke, cpu_params, caches[0], tok, torch.from_numpy(lens))
-        out, _ = decode_step(
-            smoke, gpu_params, caches[1], tok.cuda(), torch.from_numpy(lens).cuda()
-        )
-        close = torch.allclose(
-            out.float().cpu(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL
-        )
-        check(close, "decode_step on the card disagrees with the CPU")
-        lens = lens + 1
-    log("serving: smoke decode_step on the card matches the CPU")
+    smoke_decode_check(torch, [spec.arch_id])
 
     cfg = spec.model
     torch.cuda.reset_peak_memory_stats()
@@ -684,6 +704,221 @@ def serving_phase(torch) -> dict:
     }
     log(f"serving: {json.dumps(stats)}")
     return stats
+
+
+# ---------------------------------------------------------------------------
+# 3b. families: moe, ssm, hybrid and encdec decode at full width
+# ---------------------------------------------------------------------------
+
+
+def _leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_items(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def decode_step_bytes(params, cache, batch: int, vocab: int) -> dict:
+    """The bytes one decode step must move, each once: the parameters it
+    reads (the embedding table and the decoder position table give one row
+    a batch row; the encoder's parameters are not read), the whole cache
+    read, the recurrent state and conv windows written back, the logits."""
+    weights = 0
+    for name, t in _leaf_items(params):
+        top = name.split("/")[0]
+        if top in ("embed", "dec_pos"):
+            weights += batch * t.shape[-1] * t.element_size()
+        elif not top.startswith("enc_"):
+            weights += t.numel() * t.element_size()
+    cache_read = cache_written = 0
+    for name, t in _leaf_items(cache):
+        cache_read += t.numel() * t.element_size()
+        if name.split("/")[-1] in ("state", "conv"):
+            cache_written += t.numel() * t.element_size()
+    logits = batch * vocab * 2
+    return {
+        "weights": weights,
+        "cache": cache_read + cache_written,
+        "total": weights + cache_read + cache_written + logits,
+    }
+
+
+def _timed(fn, seconds: dict, key: str):
+    """``fn`` with its host wall time (it synchronises by reading tokens
+    back) added to ``seconds[key]``."""
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[key] += time.perf_counter() - t0
+
+    return timed
+
+
+def smoke_decode_check(torch, archs) -> None:
+    """Each arch's smoke config: ragged decode steps with a random live set
+    on the card and on the CPU from the same parameters agree within
+    ``BF16_TOL``.  Rows start at 0, 9, 14 and 3 tokens, so the hybrid's
+    rows run past its window of 16 and its ring cache wraps on the card."""
+    from repro_torch.configs import get
+    from repro_torch.models.model import decode_step, init_cache, init_params
+
+    for arch in archs:
+        smoke = get(arch).smoke
+        cpu_params = init_params(smoke, 0, device="cpu")
+        gpu_params = _tree_to(cpu_params, "cuda")
+        cpu_cache = init_cache(smoke, 4, 32, device="cpu")
+        gpu_cache = init_cache(smoke, 4, 32)
+        rng = np.random.default_rng(2)
+        lens = np.array([0, 9, 14, 3])
+        for step in range(SMOKE_STEPS):
+            live = rng.random(4) < 0.75
+            live[step % 4] = True
+            tok = torch.from_numpy(rng.integers(0, smoke.vocab, (4, 1)))
+            args = (tok, torch.from_numpy(lens), torch.from_numpy(live))
+            ref, _ = decode_step(smoke, cpu_params, cpu_cache, *args)
+            on_card = (a.cuda() for a in args)
+            out, _ = decode_step(smoke, gpu_params, gpu_cache, *on_card)
+            err = (out.float().cpu() - ref.float()).abs().max().item()
+            close = torch.allclose(
+                out.float().cpu(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL
+            )
+            check(close, f"{arch} smoke decode step {step}: card vs CPU max err {err}")
+            lens = lens + live
+        if smoke.family == "hybrid":
+            check(lens.max() > smoke.window, f"{arch}: the ring never wrapped")
+        log(f"{arch} smoke decode_step on the card matches the CPU, lens {lens}")
+
+
+def families_phase(torch, K) -> dict:
+    """Four tenants of the moe, ssm, hybrid and encdec families at their
+    published widths, random bf16 weights, through one ``MultiTenantEngine``
+    on the card; no partitioned-GEMM kernel is launched (decode is plain
+    PyTorch, as the JAX package's is plain ``jnp``)."""
+    from repro_torch.configs import get
+    from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
+    from repro_torch.models.model import decode_step, init_params
+    from repro_torch.serving.engine import MultiTenantEngine
+    from repro_torch.serving.kv_cache import DecodeSession
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 1 << 30, "the llama tenants were not freed")
+    K.reset_launch_counts()
+    smoke_decode_check(torch, FAMILY_SMOKES)
+
+    eng = MultiTenantEngine(TenantMeshManager(device_grid("cuda", 1)), policy="equal")
+    sessions, stats, seconds = {}, {}, {}
+    for i, (arch, depth) in enumerate(FAMILY_TENANTS):
+        cfg = get(arch).model
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=10 + i)
+        s = DecodeSession(cfg, params, batch_slots=FAMILY_SLOTS, max_seq=FAMILY_MAX_SEQ)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = cfg.param_count()
+        stats[arch] = {
+            "family": cfg.family,
+            "layers": cfg.n_layers,
+            "published_layers": get(arch).model.n_layers,
+            "parameters": n_params,
+            "resident_bytes": torch.cuda.memory_allocated() - before,
+            "init_s": init_s,
+        }
+        seconds[arch] = 0.0
+        s.admit = _timed(s.admit, seconds, arch)
+        s.step = _timed(s.step, seconds, arch)
+        sessions[arch] = s
+        eng.add_tenant(arch, s, flops_per_token=2.0 * n_params)
+        full = get(arch).model.n_layers
+        cut = f", cut to {cfg.n_layers} of {full} layers" if depth else ""
+        log(
+            f"families: {arch} ({cfg.family}), {n_params} parameters{cut}, "
+            f"ready in {init_s:.2f} s"
+        )
+
+    rng = np.random.default_rng(3)
+    reqs = {}
+    for arch, s in sessions.items():
+        shape = (FAMILY_REQUESTS, FAMILY_PROMPT)
+        prompts = rng.integers(0, s.cfg.vocab, shape).tolist()
+        reqs[arch] = [eng.submit(arch, p, FAMILY_NEW) for p in prompts]
+    rounds = dict.fromkeys(sessions, 0)
+    t0 = time.perf_counter()
+    n_rounds = 0
+    while eng.tenants:
+        check(n_rounds < 500, "families: the engine did not drain")
+        for arch in eng.step():
+            rounds[arch] += 1
+        n_rounds += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    for arch, s in sessions.items():
+        cfg = s.cfg
+        for r in reqs[arch]:
+            what = f"{arch}: request {r.rid}"
+            check(r.done and len(r.out) == FAMILY_NEW, f"{what} unfinished")
+            check(all(0 <= t < cfg.vocab for t in r.out), f"{what}: bad token")
+        shape = tuple(s.last_logits.shape)
+        check(shape == (FAMILY_SLOTS, 1, cfg.vocab), f"{arch}: logits shape {shape}")
+        check(bool(torch.isfinite(s.last_logits).all()), f"{arch}: logits not finite")
+
+        # where one decode step's time goes, all slots live
+        tok = torch.zeros((FAMILY_SLOTS, 1), dtype=torch.long, device="cuda")
+        lens = torch.full((FAMILY_SLOTS,), FAMILY_PROMPT, device="cuda")
+
+        def step(cfg=cfg, s=s, tok=tok, lens=lens):
+            decode_step(cfg, s.params, s.cache, tok, lens)
+
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3 / 5
+        prof_ms, dev_ms, top = device_profile(torch, step, 3)
+        moved = decode_step_bytes(s.params, s.cache, FAMILY_SLOTS, cfg.vocab)
+        emitted = sum(len(r.out) for r in reqs[arch])
+        stats[arch].update(
+            {
+                "rounds": rounds[arch],
+                "tokens_emitted": emitted,
+                "prompt_tokens": sum(len(r.prompt) for r in reqs[arch]),
+                "session_s": seconds[arch],
+                "tokens_per_s": emitted / seconds[arch],
+                "decode_step_ms": step_ms,
+                "decode_step_ms_profiled": prof_ms,
+                "decode_step_device_ms": dev_ms,
+                "device_busy_share": dev_ms / prof_ms,
+                "weight_bytes_per_step": moved["weights"],
+                "cache_bytes_per_step": moved["cache"],
+                "bound_ms": moved["total"] / PEAK_BYTES_PER_S * 1e3,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "top_device_ms": top,
+            }
+        )
+        log(f"families {arch}: {json.dumps(stats[arch])}")
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the families phase launched: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    emitted = sum(st["tokens_emitted"] for st in stats.values())
+    log(
+        f"families: {len(sessions)} tenants drained in {n_rounds} rounds, "
+        f"{wall:.2f} s, {emitted / wall:.1f} tokens/s; {launches}; "
+        f"phase {phase_s:.1f} s"
+    )
+    check(phase_s <= FAMILY_PHASE_S, f"families phase took {phase_s:.1f} s")
+    return {"tenants": stats, "rounds": n_rounds, "wall_s": wall, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
@@ -1575,6 +1810,93 @@ def _overhead_rounds(pkg: str, pools: dict) -> tuple[int, float]:
     return rounds, time.perf_counter() - start
 
 
+def obs_split(pkg: str = "repro_torch") -> dict:
+    """Where the armed side of the obs overhead pair spends its time, on
+    the host that runs it (no card needed).
+
+    For each gated path (``default``, ``spans``): each part of the traffic
+    cells, off and armed, ``OBS_SPLIT_PASSES`` passes a side alternated as
+    in :func:`_overhead_pair`: CPU seconds summed over the passes (one part
+    is a few ticks of a 10 ms process clock) and the median wall seconds a
+    pass.  Then one armed and one off pass under ``cProfile``: the seconds
+    spent inside each module of the port (own time, summed over its
+    functions), and the obs package's ten costliest functions with their
+    call counts."""
+    import cProfile
+    import pstats
+
+    obs_mod = _mod(pkg, "obs")
+    names = list(TRAFFIC_PROCESSES) + ["fleet"]
+    _traffic_pass(pkg, None, False)  # warm the cost caches, untimed
+    out = {"passes": OBS_SPLIT_PASSES}
+    gc.collect()
+    gc.freeze()
+    try:
+        for path, keep_trace in (("default", False), ("spans", True)):
+            cpu = {n: {"off": 0.0, "on": 0.0} for n in names}
+            wall = {n: {"off": [], "on": []} for n in names}
+            for i in range(OBS_SPLIT_PASSES):
+                offs = traffic_parts(pkg, None, keep_trace)
+                ons = traffic_parts(pkg, obs_mod.Observability(), keep_trace)
+                for k, (off, on) in enumerate(zip(offs, ons)):
+                    order = ("on", "off") if (i + k) % 2 == 0 else ("off", "on")
+                    for side in order:
+                        t0 = time.perf_counter()
+                        seconds, _ = _timed_part(on if side == "on" else off)
+                        wall[names[k]][side].append(time.perf_counter() - t0)
+                        cpu[names[k]][side] += seconds
+            rows = {}
+            for n in names:
+                off, on = cpu[n]["off"], cpu[n]["on"]
+                w_off = statistics.median(wall[n]["off"])
+                w_on = statistics.median(wall[n]["on"])
+                rows[n] = {
+                    "cpu_off_s": off,
+                    "cpu_on_s": on,
+                    "cpu_ratio": on / off,
+                    "wall_off_s": w_off,
+                    "wall_on_s": w_on,
+                    "wall_ratio": w_on / w_off,
+                }
+            out[path] = rows
+        for side, make in (("on", obs_mod.Observability), ("off", None)):
+            prof = cProfile.Profile()
+            prof.enable()
+            _traffic_pass(pkg, make, False)
+            prof.disable()
+            by_module: dict[str, float] = {}
+            obs_fns = []
+            stats = pstats.Stats(prof).stats
+            for (file, line, fn), (_cc, nc, tt, _ct, _) in stats.items():
+                key = file.split(f"{pkg}/")[-1] if f"{pkg}/" in file else "other"
+                by_module[key] = by_module.get(key, 0.0) + tt
+                if key.startswith("obs/"):
+                    obs_fns.append((tt, nc, f"{key}:{line}:{fn}"))
+            top = sorted(by_module.items(), key=lambda kv: -kv[1])[:12]
+            out[f"profile_{side}"] = {
+                "own_s_by_module": dict(top),
+                "obs_s": sum(t for t, _, _ in obs_fns),
+                "obs_top": [
+                    {"fn": name, "calls": nc, "own_s": tt}
+                    for tt, nc, name in sorted(obs_fns, reverse=True)[:10]
+                ],
+            }
+    finally:
+        gc.unfreeze()
+    return out
+
+
+def obs_split_main() -> int:
+    split = obs_split()
+    for path in ("default", "spans"):
+        for part, row in split[path].items():
+            log(f"obs split {path} {part}: {json.dumps(row)}")
+    for side in ("on", "off"):
+        log(f"obs split profile {side}: {json.dumps(split[f'profile_{side}'])}")
+    print(json.dumps(split), flush=True)
+    return 0
+
+
 def _check_sections(record: dict, golden: dict, path: str) -> None:
     check(set(record) == set(golden), f"cells {sorted(record)} vs {path}")
     for section, want in golden.items():
@@ -1807,6 +2129,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if sys.argv[1:] == [SERVE_FLAG]:
         return serve_child()
+    if sys.argv[1:] == [OBS_SPLIT_FLAG]:
+        return obs_split_main()
     import torch
 
     if not torch.cuda.is_available():
@@ -1820,6 +2144,7 @@ def main() -> int:
     details = build_details(_build)
     kernels = kernel_phase(torch, K, details)
     serving_phase(torch)
+    families_phase(torch, K)
     paper_phase(K)
     serve_phase()
     mesh_phase(torch, K)

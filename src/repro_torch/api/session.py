@@ -278,3 +278,13 @@ class Session:
         return TrafficSimulator(
             arrivals, policy=self.policy, backend=self.backend, config=config, **kwargs
         ).run()
+
+    def run_all(
+        self, workloads: Sequence[str] | None = None
+    ) -> dict[str, SessionResult]:
+        """Run every named workload (default: all of ``WORKLOADS``)."""
+        if workloads is None:
+            from repro_torch.sim import workloads as _w
+
+            workloads = sorted(_w.WORKLOADS)
+        return {wl: self.run(wl) for wl in workloads}

@@ -1,1 +1,1 @@
-"""The dense model family's decode path, and the JAX parameter bridge."""
+"""The five model families' decode paths, and the JAX parameter bridge."""

@@ -10,7 +10,7 @@ paper's accelerator and puts nothing on the card.
 """
 
 from repro_torch.sim.energy import EnergyBreakdown, EnergyModel
-from repro_torch.sim.runner import run_experiment
+from repro_torch.sim.runner import ExperimentResult, run_experiment
 from repro_torch.sim.systolic import SystolicConfig, layer_time_fn
 
 __all__ = [
@@ -19,4 +19,5 @@ __all__ = [
     "EnergyModel",
     "EnergyBreakdown",
     "run_experiment",
+    "ExperimentResult",
 ]

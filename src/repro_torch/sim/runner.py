@@ -19,6 +19,9 @@ from repro_torch.api.session import Session, SessionResult
 from repro_torch.sim.energy import EnergyModel
 from repro_torch.sim.systolic import SystolicConfig
 
+# the experiment result is the Session result (the JAX package's alias)
+ExperimentResult = SessionResult
+
 
 def run_experiment(
     workload: str,

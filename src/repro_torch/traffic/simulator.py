@@ -403,6 +403,10 @@ class TrafficSimulator:
                 reg.series("fleet.queue_depth").sample,
                 reg.series("fleet.in_system").sample,
             )
+            # per-tenant fairness series, each looked up once by model name
+            # (created at its first sample, so the registry's order stays)
+            self._slowdown_samplers: dict[str, object] = {}
+            self._share_samplers: dict[str, object] = {}
             self._ctr_arrivals = reg.counter("serve.arrivals")
             self._ctr_dispatch = {
                 s: reg.counter(f"serve.dispatch.{s}")
@@ -507,10 +511,15 @@ class TrafficSimulator:
         if self._registry is not None and self.accounting is not None:
             # slowdown-vs-isolated sample at the completion instant; the
             # isolated baseline exists since observe() ran at arrival
-            iso = self.accounting.isolated_s(b.job.model)
+            model = b.job.model
+            iso = self.accounting.isolated_s(model)
             if iso:
-                series = self._registry.series(f"tenant.{b.job.model}.slowdown")
-                series.sample(t, (t - b.job.arrival) / iso)
+                sample = self._slowdown_samplers.get(model)
+                if sample is None:
+                    name = f"tenant.{model}.slowdown"
+                    sample = self._registry.series(name).sample
+                    self._slowdown_samplers[model] = sample
+                sample(t, (t - b.job.arrival) / iso)
 
     def _on_submit(self, node: ArrayNode, job: Job, t: float) -> None:
         b = self._builders[job.dnng.name]
@@ -728,9 +737,14 @@ class TrafficSimulator:
                 self.accounting.observe(job)
                 shares = self.accounting.sample(job.arrival, nodes)
                 if registry is not None:
+                    share_samplers = self._share_samplers
                     for model, share in shares.items():
-                        series = registry.series(f"tenant.{model}.dominant_share")
-                        series.sample(job.arrival, share)
+                        sample = share_samplers.get(model)
+                        if sample is None:
+                            name = f"tenant.{model}.dominant_share"
+                            sample = registry.series(name).sample
+                            share_samplers[model] = sample
+                        sample(job.arrival, share)
         # arrivals exhausted: keep ticking while queues drain, then flush
         if next_tick is not None:
             while any(n.queue for n in nodes):

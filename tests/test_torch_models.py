@@ -12,8 +12,6 @@ a few of them compound over the two smoke layers, hence 3e-2 — the JAX
 package's own bf16 tolerance (tests/test_kernels.py ``TOL``).
 """
 
-import dataclasses
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -206,12 +204,3 @@ def test_init_params_layout_matches_jax():
     w = mine["blocks"]["mlp"]["down"].float()
     # N(0, 1/d_ff) initialisation, as dense_init draws it
     assert abs(w.std().item() * CFG.d_ff**0.5 - 1.0) < 0.05
-
-
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(CFG, family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.init_cache(cfg, 1, 8, device="cpu")

@@ -73,6 +73,19 @@ def test_session_run_matches_jax(policy, workload):
     assert json.dumps(mine.as_dict()) == json.dumps(theirs.as_dict())
 
 
+@pytest.mark.parametrize("policy", POLICIES)
+def test_run_all_matches_jax(policy):
+    mine = P.Session(policy=policy, backend="sim").run_all()
+    theirs = J.Session(policy=policy, backend="sim").run_all()
+    assert list(mine) == list(theirs) == sorted(PW.WORKLOADS)
+    assert {k: r.as_dict() for k, r in mine.items()} == {
+        k: r.as_dict() for k, r in theirs.items()
+    }
+    one = P.Session(policy=policy, backend="sim").run_all(["light"])
+    assert list(one) == ["light"]
+    assert one["light"].as_dict() == theirs["light"].as_dict()
+
+
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_every_policy_beats_sequential(workload):
     for pol in P.list_policies():

@@ -672,3 +672,14 @@ def test_min_cost_assignment_matches_jax(seed):
                 if rng.random() < 0.2:
                     row[j] = math.inf
         assert PF.min_cost_assignment(costs) == JF.min_cost_assignment(costs)
+
+
+def test_experiment_result_alias():
+    import repro.sim as JSim
+    import repro_torch.sim as PSim
+    from repro_torch.api.session import SessionResult
+    from repro_torch.sim import ExperimentResult
+
+    assert ExperimentResult is SessionResult
+    assert "ExperimentResult" in PSim.__all__
+    assert PSim.__all__ == JSim.__all__
