@@ -45,6 +45,19 @@ check:
    profiled and device ms, busy share, the bytes one step must move over
    3.35 TB/s, resident and peak memory, init s.  No partitioned-GEMM
    kernel is launched (checked), and the phase fits in 120 s.
+   Train: the smoke configs of llama3.2-3b, phi3.5-moe, mamba2,
+   recurrentgemma, whisper and internvl2 (the vision frontend) take 2 train
+   steps on the card and on the CPU from the same parameters and batches;
+   losses and gradient norms agree within 3e-2.  A checkpoint saved after
+   step 2 on the card and restored into fresh state gives step 3 the loss
+   of an uninterrupted run.  Then llama3.2-3b at full width and depth
+   (random bf16 weights, f32 AdamW state) trains 6 steps of batch 4 × seq
+   512 through the calls of ``python -m repro_torch.launch.train``: per
+   step the loss, host ms, tokens/s, the bound (the bf16 and f32 FLOPs of
+   forward, remat and backward over their peaks, plus AdamW's 28 bytes a
+   parameter over 3.35 TB/s) and peak memory; the last step is profiled
+   for its device ms.  Losses are finite, no partitioned-GEMM kernel is
+   launched, and the phase fits in 150 s.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -96,20 +109,27 @@ The last lines are the kernels' JSON record, the card line, and
 and prints no result.
 
     python3 chip_smoke.py --obs-split
+    python3 chip_smoke.py --obs-pairs N
 
-needs no card and is not part of the run above: it prints where the armed
-side of the obs overhead pair spends its time, part by part and module by
-module (:func:`obs_split`).
+need no card and are not part of the run above.  The first prints where the
+armed side of the obs overhead pair spends its time, part by part and
+module by module, and the Python bytecode instructions each side runs
+(:func:`obs_split`).  The second runs ``N`` pairs of the gate's own
+estimator on each gated path and prints every sample (:func:`obs_pairs`);
+copied into an unpacked parent commit, it compares two trees' armed cost on
+one host.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
 import hashlib
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -149,6 +169,7 @@ SERVE_GOLDEN = "tests/data/serve_golden.json"
 SERVE_FLAG = "--serve-phase"  # the child process of the serve phase
 OBS_SPLIT_FLAG = "--obs-split"  # the armed side's time by part (not run by default)
 OBS_SPLIT_PASSES = 16
+OBS_PAIRS_FLAG = "--obs-pairs"  # N samples of the gate's estimator (not run by default)
 # the whole serve phase, child included: its cells take under a minute on the
 # card's host, and the obs overhead pair starts no round past OBS_WALL_S
 SERVE_TIMEOUT_S = 960
@@ -185,6 +206,26 @@ SMOKE_STEPS = 8  # card-vs-CPU decode steps of each smoke config
 FAMILY_SLOTS, FAMILY_MAX_SEQ = 4, 128
 FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW = 3, 8, 16
 FAMILY_PHASE_S = 120.0
+# the train phase: the smoke configs of every family (and the vision frontend)
+# card vs CPU, a checkpoint round trip on the card, then llama3.2-3b trained at
+# full width and depth; the optimizer is launch/train.py's for TRAIN_STEPS
+TRAIN_SMOKES = (
+    "llama3.2-3b",
+    "phi3.5-moe-42b-a6.6b",
+    "mamba2-780m",
+    "recurrentgemma-2b",
+    "whisper-small",
+    "internvl2-26b",
+)
+TRAIN_SMOKE_STEPS = 2
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)  # launch.train's
+TRAIN_CKPT_DIR = "build/train_ckpt"  # gitignored; removed after the round trip
+TRAIN_PHASE_S = 150.0
+# AdamW's bytes a parameter: the bf16 grad read, the f32 master, m and v read
+# and written, the bf16 param written
+ADAMW_BYTES_PER_PARAM = 28
 TPU_KERNEL = {
     "dense": "src/repro/kernels/partitioned_matmul.py:261",
     "compact": "src/repro/kernels/partitioned_matmul.py:335",
@@ -919,6 +960,275 @@ def families_phase(torch, K) -> dict:
     )
     check(phase_s <= FAMILY_PHASE_S, f"families phase took {phase_s:.1f} s")
     return {"tenants": stats, "rounds": n_rounds, "wall_s": wall, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# 3c. train: the full-sequence forward and the single-card training path
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(
+    torch, arch: str, device: str, smoke: bool = True, seed: int = 0, params=None
+):
+    """What ``python -m repro_torch.launch.train`` builds: the mesh, the
+    sharded params (or a copy of ``params``) and optimizer state, its train
+    step, its batches."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_sharded,
+        make_train_step,
+    )
+
+    cfg = get(arch).smoke if smoke else get(arch).model
+    batch, seq = (2, 16) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    mesh = make_host_mesh(device=device)
+    if params is None:
+        params, opt_state = init_sharded(cfg, mesh, seed=seed)
+    else:
+        params = _tree_to(params, device)
+        opt_state = init_opt_state(params)
+    step, _ = make_train_step(cfg, mesh, TrainConfig(opt=OptConfig(**TRAIN_OPT)))
+    dcfg = DataConfig(vocab=cfg.vocab, batch=batch, seq=seq, seed=SEED)
+    extras = {}
+    if cfg.frontend == "audio":
+        extras["frames"] = (batch, cfg.enc_seq, cfg.d_model)
+    elif cfg.frontend == "vision":
+        extras["patches"] = (batch, cfg.n_patches, cfg.d_model)
+
+    def batch_at(i):
+        return make_batch(dcfg, i, mesh, extras)
+
+    return cfg, params, opt_state, step, batch_at
+
+
+def smoke_train_check(torch) -> None:
+    """Each smoke config: ``TRAIN_SMOKE_STEPS`` train steps on the card and on
+    the CPU from the same parameters and batches; every step's loss and
+    gradient norm agree within ``BF16_TOL``."""
+    for arch in TRAIN_SMOKES:
+        cpu = _train_setup(torch, arch, "cpu")
+        gpu = _train_setup(torch, arch, "cuda", params=cpu[1])
+        for i in range(TRAIN_SMOKE_STEPS):
+            ref, out = (
+                {k: float(v) for k, v in step(p, o, batch_at(i))[2].items()}
+                for _, p, o, step, batch_at in (cpu, gpu)
+            )
+            for key in ("loss", "grad_norm"):
+                err = abs(out[key] - ref[key]) / abs(ref[key])
+                what = f"{arch} step {i + 1} {key}: card {out[key]} cpu {ref[key]}"
+                check(err < BF16_TOL, what)
+        log(
+            f"train: {arch} smoke, {TRAIN_SMOKE_STEPS} steps on the card match "
+            f"the CPU, loss {out['loss']:.4f} (cpu {ref['loss']:.4f})"
+        )
+
+
+def checkpoint_round_trip(torch) -> None:
+    """On the card at smoke size: save after step 2, restore into fresh
+    state (other seed), run step 3 — the same loss as an uninterrupted run
+    (within 1e-6: the same kernels on the same numbers)."""
+    import shutil
+
+    from repro_torch.training import checkpoint as ckpt
+
+    _, params, opt_state, step, batch_at = _train_setup(torch, TRAIN_ARCH, "cuda")
+    losses = [float(step(params, opt_state, batch_at(i))[2]["loss"]) for i in range(3)]
+    _, params, opt_state, step, batch_at = _train_setup(torch, TRAIN_ARCH, "cuda")
+    for i in range(2):
+        step(params, opt_state, batch_at(i))
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    ckpt.save(TRAIN_CKPT_DIR, 2, {"params": params, "opt": opt_state})
+    _, fresh, fresh_opt, step, batch_at = _train_setup(
+        torch, TRAIN_ARCH, "cuda", seed=1
+    )
+    got = ckpt.restore_latest(TRAIN_CKPT_DIR, {"params": fresh, "opt": fresh_opt})
+    shutil.rmtree(TRAIN_CKPT_DIR)
+    check(got is not None and got[0] == 2, f"checkpoint: restored {got and got[0]}")
+    state = got[1]
+    check(int(state["opt"]["step"]) == 2, "checkpoint: optimizer step not restored")
+    loss = float(step(state["params"], state["opt"], batch_at(2))[2]["loss"])
+    err = abs(loss - losses[2]) / abs(losses[2])
+    check(err <= 1e-6, f"checkpoint: resumed step 3 loss {loss} vs {losses[2]}")
+    log(
+        f"train: checkpoint round trip on the card, step 3 loss {loss} resumed "
+        f"vs {losses[2]} uninterrupted (rel {err:.2e})"
+    )
+
+
+def train_flops(params, cfg, batch: int, seq: int) -> dict:
+    """The operations one train step must do, by type: the bf16 matmuls of
+    the layers (forward, remat forward, backward = 4 forwards) and of the
+    head (3), and the f32 attention scores and values (4 forwards)."""
+    tokens = batch * seq
+    blocks = _leaf_items(params["blocks"])
+    layer_weights = sum(t.numel() for _, t in blocks if t.dim() == 3)
+    head = params["lm_head"].numel()
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    return {
+        "bfloat16": 4 * 2 * tokens * layer_weights + 3 * 2 * tokens * head,
+        "float32": 4 * attn,
+    }
+
+
+def _kernel_kind(name: str) -> str:
+    """matmul, reduction, elementwise (copies and casts included) or other,
+    from a CUDA kernel's name."""
+    n = name.lower()
+    if any(k in n for k in ("gemm", "cutlass", "nvjet", "xmma")):
+        return "matmul"
+    if "reduce" in n:
+        return "reduction"
+    if "elementwise" in n or "copy" in n:
+        return "elementwise"
+    return "other"
+
+
+def _stream_ms(torch, fn):
+    """(``fn()``, ms between CUDA events recorded before and after it)."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def step_split(torch, cfg, params, opt_state, batch) -> dict:
+    """A train step's two halves timed alone on the stream: the forward and
+    backward (``loss_and_grads``), then the AdamW update (which updates
+    the state once more)."""
+    from repro_torch.training.optimizer import OptConfig, adamw_update
+    from repro_torch.training.train_loop import loss_and_grads
+
+    (_, grads), fb_ms = _stream_ms(torch, lambda: loss_and_grads(cfg, params, batch))
+    opt = OptConfig(**TRAIN_OPT)
+    _, adamw_ms = _stream_ms(
+        torch, lambda: adamw_update(opt, params, grads, opt_state)
+    )
+    return {"forward_backward_ms": fb_ms, "adamw_ms": adamw_ms}
+
+
+def train_phase(torch, K) -> dict:
+    """The smoke configs card vs CPU, a checkpoint round trip, then
+    llama3.2-3b trained at full width and depth (random bf16 weights, batch
+    4 × seq 512, ``TRAIN_STEPS`` steps) through the same calls as
+    ``python -m repro_torch.launch.train``; no partitioned-GEMM kernel is
+    launched (training is plain PyTorch, as the JAX package's is plain
+    ``jnp``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = torch.cuda.memory_allocated() < 1 << 30
+    check(freed, "the families tenants were not freed")
+    K.reset_launch_counts()
+    smoke_train_check(torch)
+    checkpoint_round_trip(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, opt_state, step, batch_at = _train_setup(
+        torch, TRAIN_ARCH, "cuda", smoke=False
+    )
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    n_params = sum(t.numel() for _, t in _leaf_items(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(params, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flop_ms = sum(f / PEAK_FLOPS[dt] for dt, f in flops.items()) * 1e3
+    byte_ms = n_params * ADAMW_BYTES_PER_PARAM / PEAK_BYTES_PER_S * 1e3
+    # the matmuls and the optimizer pass run one after the other
+    bound_ms = flop_ms + byte_ms
+    log(
+        f"train: {TRAIN_ARCH} at full width, {cfg.n_layers} layers, "
+        f"{n_params} parameters, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; "
+        f"init {init_s:.2f} s, resident "
+        f"{resident / 1e9:.2f} GB; bound {bound_ms:.1f} ms (flops {flop_ms:.1f}: "
+        f"{flops['bfloat16']:.4g} bf16 + {flops['float32']:.4g} f32; AdamW bytes "
+        f"{byte_ms:.1f})"
+    )
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        profiled = i == TRAIN_STEPS - 1
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) if profiled else contextlib.nullcontext() as prof:
+            t1 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t1) * 1e3
+        row = {
+            "step": i + 1,
+            "loss": loss,
+            "grad_norm": gnorm,
+            "host_ms": host_ms,
+            "profiled": profiled,
+            "tokens_per_s": tokens / host_ms * 1e3,
+            "bound_ms": bound_ms,
+            "flop_bound_ms": flop_ms,
+            "byte_bound_ms": byte_ms,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        }
+        if prof is not None:
+            dev = [
+                (e.key, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            ]
+            dev.sort(key=lambda r: -r[1])
+            row["device_ms"] = sum(ms for _, ms in dev)
+            check(row["device_ms"] > 0, "train: the profiled step shows no device time")
+            row["device_busy_share"] = row["device_ms"] / host_ms
+            row["top_device_ms"] = dev[:6]
+            kinds: dict = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    kind = kinds.setdefault(_kernel_kind(e.key), [0, 0.0])
+                    kind[0] += e.count
+                    kind[1] += e.self_device_time_total / 1e3
+            row["device_by_kind"] = {
+                k: {"kernels": n, "ms": ms} for k, (n, ms) in kinds.items()
+            }
+        finite = math.isfinite(loss) and math.isfinite(gnorm)
+        check(finite, f"train step {i + 1}: {row}")
+        rows.append(row)
+        log(f"train step: {json.dumps(row)}")
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the train phase launched: {launches}")
+    stats = {
+        "arch": TRAIN_ARCH,
+        "parameters": n_params,
+        "init_s": init_s,
+        "resident_bytes": resident,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        # steps 2 to 5: neither the first nor the profiled one
+        "step_ms_median": statistics.median(r["host_ms"] for r in rows[1:-1]),
+        "first_step_ms": rows[0]["host_ms"],
+        "device_ms": rows[-1]["device_ms"],
+        "bound_ms": bound_ms,
+        "losses": [r["loss"] for r in rows],
+    }
+    stats["tokens_per_s"] = tokens / stats["step_ms_median"] * 1e3
+    stats.update(step_split(torch, cfg, params, opt_state, batch))
+    del params, opt_state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"train: {json.dumps(stats)}; {launches}")
+    phase_s = stats["phase_s"]
+    check(phase_s <= TRAIN_PHASE_S, f"train phase took {phase_s:.1f} s")
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -1881,9 +2191,70 @@ def obs_split(pkg: str = "repro_torch") -> dict:
                     for tt, nc, name in sorted(obs_fns, reverse=True)[:10]
                 ],
             }
+        out["instructions"] = {
+            path: {
+                "off": _pass_instructions(pkg, None, keep),
+                "on": _pass_instructions(pkg, obs_mod.Observability, keep),
+            }
+            for path, keep in (("default", False), ("spans", True))
+        }
     finally:
         gc.unfreeze()
     return out
+
+
+def _pass_instructions(pkg: str, make_obs, keep_trace: bool) -> int:
+    """Python bytecode instructions one timed pass of the traffic cells runs
+    (``sys.monitoring``): a count that no host's speed moves."""
+    mon = sys.monitoring
+    tool = mon.PROFILER_ID
+    count = [0]
+
+    def tick(code, offset):
+        count[0] += 1
+
+    parts = traffic_parts(pkg, make_obs() if make_obs is not None else None, keep_trace)
+    mon.use_tool_id(tool, "chip_smoke")
+    mon.register_callback(tool, mon.events.INSTRUCTION, tick)
+    mon.set_events(tool, mon.events.INSTRUCTION)
+    try:
+        for part in parts:
+            _timed_part(part)
+    finally:
+        mon.set_events(tool, 0)
+        mon.register_callback(tool, mon.events.INSTRUCTION, None)
+        mon.free_tool_id(tool)
+    return count[0]
+
+
+def obs_pairs(n: int, pkg: str = "repro_torch") -> int:
+    """``n`` off/armed pairs of :func:`_overhead_pair` on each gated path,
+    after the same warm-up and frozen heap as :func:`obs_overhead`; prints
+    one JSON line: each path's CPU seconds per sample, its floor ratio (the
+    gate's) and its median pair ratio."""
+    obs_mod = _mod(pkg, "obs")
+    _traffic_pass(pkg, None, False)
+    gc.collect()
+    gc.freeze()
+    out = {}
+    try:
+        for path, keep in (("default", False), ("spans", True)):
+            samples = {"off": [], "on": []}
+            for i in range(n):
+                cpu = _overhead_pair(pkg, obs_mod.Observability, keep, on_first=i % 2 == 1)
+                for side, seconds in cpu.items():
+                    samples[side].append(seconds)
+            out[path] = {
+                **samples,
+                "ratio": _floor_ratio(samples),
+                "median_ratio": statistics.median(
+                    b / a for a, b in zip(samples["off"], samples["on"])
+                ),
+            }
+    finally:
+        gc.unfreeze()
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def obs_split_main() -> int:
@@ -1893,6 +2264,8 @@ def obs_split_main() -> int:
             log(f"obs split {path} {part}: {json.dumps(row)}")
     for side in ("on", "off"):
         log(f"obs split profile {side}: {json.dumps(split[f'profile_{side}'])}")
+    for path, n in split["instructions"].items():
+        log(f"obs split instructions {path}: {json.dumps(n)}, {n['on'] / n['off']!r}")
     print(json.dumps(split), flush=True)
     return 0
 
@@ -2131,6 +2504,8 @@ def main() -> int:
         return serve_child()
     if sys.argv[1:] == [OBS_SPLIT_FLAG]:
         return obs_split_main()
+    if sys.argv[1:2] == [OBS_PAIRS_FLAG] and len(sys.argv) == 3:
+        return obs_pairs(int(sys.argv[2]))
     import torch
 
     if not torch.cuda.is_available():
@@ -2145,6 +2520,7 @@ def main() -> int:
     kernels = kernel_phase(torch, K, details)
     serving_phase(torch)
     families_phase(torch, K)
+    train_phase(torch, K)
     paper_phase(K)
     serve_phase()
     mesh_phase(torch, K)

@@ -1,0 +1,287 @@
+"""Logical-axis sharding rules → a partition spec for every leaf.
+
+Counterpart of ``repro.distributed.sharding`` (MaxText-style FSDP + TP):
+
+* every parameter leaf gets a tuple of **logical axes** from its path in
+  the parameter tree (``logical_axes_of``);
+* ``MeshRules`` maps logical axes to mesh axes (``embed`` → "data" for
+  FSDP; heads, ff, vocab, … → "model" for TP; the stacked layer axis
+  replicated);
+* a dim is sharded only if the mesh axis divides it — otherwise it is
+  replicated — so one rule set is valid for every config and mesh.
+
+A spec is a tuple with one entry per tensor dim: a mesh-axis name, a tuple
+of names, or ``None``, entry for entry the JAX ``PartitionSpec`` in its
+normal form (``_pspec``).  A
+:class:`NamedSharding` places a tensor by its spec.  On a one-device mesh
+that is ``.to(device)``; placement across several cards is not built yet,
+and raises.
+
+Batches shard their dim 0 over ("pod", "data"); decode caches shard the
+batch over the data axes and the KV sequence over "model".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch._tree import map_with_path, tree_map
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.model import ModelConfig
+
+# ---------------------------------------------------------------------------
+# logical axes per parameter path
+# ---------------------------------------------------------------------------
+
+# leaf-name → logical axes (no leading "layers" axis; that is added for
+# stacked block params automatically).
+_LEAF_RULES: dict[str, tuple[str | None, ...]] = {
+    # embeddings / head
+    "embed": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"),
+    "enc_pos": (None, "embed"),
+    "dec_pos": (None, "embed"),
+    # attention
+    "wq": ("embed", "heads"),
+    "wk": ("embed", "kv"),
+    "wv": ("embed", "kv"),
+    "wo": ("heads", "embed"),
+    "bq": ("heads",),
+    "bk": ("kv",),
+    "bv": ("kv",),
+    # dense MLP
+    "gate": ("embed", "ff"),
+    "up": ("embed", "ff"),
+    "down": ("ff", "embed"),
+    # norms
+    "scale": ("embed",),
+    "bias": ("embed",),
+    # moe (expert-leading)
+    "router": ("embed", "expert"),
+    # ssd
+    "in_proj": ("embed", "ssm"),
+    "out_proj": ("ssm", "embed"),
+    "A_log": (None,),
+    "D": (None,),
+    "dt_bias": (None,),
+    # rglru
+    "in_x": ("embed", "lru"),
+    "in_gate": ("embed", "lru"),
+    "wa": ("lru", "lru_out"),
+    "wx": ("lru", "lru_out"),
+    "ba": ("lru",),
+    "bx": ("lru",),
+    "lambda": ("lru",),
+    "out": ("lru", "embed"),
+    # conv1d
+    "w": (None, "ssm"),
+    "b": ("ssm",),
+}
+
+# leaves that live under a "moe" subtree get an "expert" axis prepended
+_MOE_3D = {"gate", "up", "down"}
+
+# subtrees whose direct arrays are stacked over layers
+_STACKED_PREFIXES = ("blocks", "enc_blocks", "dec_blocks")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """logical axis → mesh axis (None = replicate)."""
+
+    embed: Any = "data"  # FSDP
+    heads: Any = "model"
+    kv: Any = "model"
+    ff: Any = "model"
+    vocab: Any = "model"
+    expert: Any = "model"
+    ssm: Any = "model"
+    lru: Any = "model"
+    lru_out: Any = None
+    layers: Any = None
+
+    def mesh_axis(self, logical: str | None) -> Any:
+        if logical is None:
+            return None
+        return getattr(self, logical, None)
+
+
+TP_ONLY = MeshRules(embed=None)
+FSDP_TP = MeshRules()
+REPLICATED = MeshRules(
+    embed=None,
+    heads=None,
+    kv=None,
+    ff=None,
+    vocab=None,
+    expert=None,
+    ssm=None,
+    lru=None,
+)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """A spec on a mesh; ``place(t)`` puts ``t`` where the spec says."""
+
+    mesh: Mesh
+    spec: tuple
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh.size != 1:
+            raise NotImplementedError(
+                "placement across several devices is not built yet"
+            )
+        return t.to(self.mesh.devices.flat[0])
+
+
+def _pspec(*entries) -> tuple:
+    """A spec in ``PartitionSpec``'s normal form: an axis list is a tuple,
+    a tuple of one name is the name, an empty one is ``None``."""
+
+    def norm(e):
+        if isinstance(e, (tuple, list)):
+            e = tuple(e)
+            return None if not e else e[0] if len(e) == 1 else e
+        return e
+
+    return tuple(norm(e) for e in entries)
+
+
+def logical_axes_of(path, leaf) -> tuple[str | None, ...]:
+    """Logical axes for one parameter leaf, from its path (a tuple of keys)."""
+    names = [str(k) for k in path]
+    leaf_name = names[-1]
+    axes = _LEAF_RULES.get(leaf_name)
+    if axes is None:
+        axes = (None,) * leaf.ndim
+    if "moe" in names and leaf_name in _MOE_3D:
+        axes = ("expert",) + axes
+    # stacked-block leading layer axis
+    if any(names[0].startswith(p) for p in _STACKED_PREFIXES):
+        axes = ("layers",) + axes
+    # pad/trim to rank (robust to bias-vs-matrix reuse of names)
+    if len(axes) < leaf.ndim:
+        axes = (None,) * (leaf.ndim - len(axes)) + axes
+    elif len(axes) > leaf.ndim:
+        axes = axes[-leaf.ndim :]
+    return axes
+
+
+def _divisible(dim: int, mesh: Mesh, axis) -> bool:
+    if axis is None:
+        return False
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    if isinstance(axis, (tuple, list)):
+        total = int(np.prod([sizes[a] for a in axis]))
+    else:
+        total = sizes[axis]
+    return dim % total == 0
+
+
+def param_pspec(path, leaf, mesh: Mesh, rules: MeshRules) -> tuple:
+    """The spec of one leaf under ``rules`` on ``mesh``."""
+    spec = []
+    used: set = set()
+    for dim, ax in zip(leaf.shape, logical_axes_of(path, leaf)):
+        mesh_ax = rules.mesh_axis(ax)
+        # never map two tensor dims to the same mesh axis
+        key = tuple(mesh_ax) if isinstance(mesh_ax, list) else mesh_ax
+        if mesh_ax is not None and key not in used and _divisible(dim, mesh, mesh_ax):
+            spec.append(mesh_ax)
+            used.add(key)
+        else:
+            spec.append(None)
+    return _pspec(*spec)
+
+
+def params_shardings(params_tree, mesh: Mesh, rules: MeshRules = FSDP_TP):
+    """A ``NamedSharding`` tree matching ``params_tree`` (tensors, meta
+    tensors included)."""
+    return map_with_path(
+        lambda p, x: NamedSharding(mesh, param_pspec(p, x, mesh, rules)), params_tree
+    )
+
+
+def place(tree, shardings):
+    """Each leaf of ``tree`` placed by its sharding."""
+    return tree_map(lambda t, sh: sh.place(t), tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# batch / cache shardings
+# ---------------------------------------------------------------------------
+
+
+def choose_mesh_shape(
+    cfg: ModelConfig,
+    n_chips: int = 256,
+    tp_candidates: tuple[int, ...] = (16, 8, 4, 2, 1),
+) -> tuple[int, int]:
+    """(data, model) factorization of ``n_chips`` for this architecture: the
+    widest TP that divides n_heads, n_kv_heads (when grouped), d_ff and
+    d_model; everything else goes to the data (FSDP) axis."""
+    for tp in tp_candidates:
+        if n_chips % tp:
+            continue
+        dims = [d for d in (cfg.n_heads, cfg.d_ff, cfg.d_model) if d]
+        # MQA (kv=1): replicating the single KV head is standard; only
+        # grouped KV (>1) must divide the TP width
+        if cfg.n_kv_heads > 1:
+            dims.append(cfg.n_kv_heads)
+        if not dims:  # attention-free (mamba2): d_inner splits instead
+            dims = [cfg.ssm_expand * cfg.d_model]
+        if all(d % tp == 0 for d in dims):
+            return (n_chips // tp, tp)
+    return (n_chips, 1)
+
+
+def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Mesh axes carrying data parallelism ("pod" included when present)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_pspec(mesh: Mesh) -> tuple:
+    return _pspec(batch_axes(mesh))
+
+
+def batch_shardings(batch_tree, mesh: Mesh):
+    """Shard every batch leaf's dim 0 over the data axes."""
+    ax = batch_axes(mesh)
+
+    def spec(x):
+        if x.shape and _divisible(x.shape[0], mesh, list(ax)):
+            return NamedSharding(mesh, _pspec(ax))
+        return NamedSharding(mesh, ())
+
+    return tree_map(spec, batch_tree)
+
+
+def cache_pspec(path, leaf, mesh: Mesh) -> tuple:
+    """Decode-cache spec: batch (dim 1) over the data axes; for KV caches
+    (L, B, S, KV, D) the sequence dim over "model"."""
+    names = [str(k) for k in path]
+    ax = batch_axes(mesh)
+    spec: list = [None] * leaf.ndim
+    if leaf.ndim >= 2 and _divisible(leaf.shape[1], mesh, list(ax)):
+        spec[1] = ax
+    kv_names = ("k", "v", "attn_k", "attn_v", "cross_k", "cross_v")
+    is_kv = any(n in kv_names for n in names)
+    if (
+        is_kv
+        and leaf.ndim == 5
+        and "model" in mesh.axis_names
+        and _divisible(leaf.shape[2], mesh, "model")
+    ):
+        spec[2] = "model"
+    return _pspec(*spec)
+
+
+def cache_shardings(cache_tree, mesh: Mesh):
+    return map_with_path(
+        lambda p, x: NamedSharding(mesh, cache_pspec(p, x, mesh)), cache_tree
+    )

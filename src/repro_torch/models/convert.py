@@ -1,9 +1,12 @@
-"""Carry a JAX parameter tree across to the port.
+"""Carry a JAX parameter tree, or an optimizer state, across to the port.
 
-``params_from_jax`` takes the JAX package's parameter pytree with every leaf
-as a NumPy array (``jax.tree.map(np.asarray, params)``) and returns the same
-tree of tensors: same keys, stacked layer axis, ``(in, out)`` weights, same
-dtypes.  With it, the two packages compute the same function.
+``params_from_jax`` takes a JAX package pytree of nested dicts with every
+leaf as a NumPy array (``jax.tree.map(np.asarray, tree)``) and returns the
+same tree of tensors: same keys, stacked layer axis, ``(in, out)`` weights,
+same dtypes.  A parameter tree, a gradient tree and an optimizer state
+(``init_opt_state``: f32 master, m and v trees and an int32 ``step``
+scalar) all go across, so both packages start a train step from the same
+numbers.
 """
 
 from __future__ import annotations

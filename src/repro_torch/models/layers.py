@@ -1,11 +1,15 @@
-"""Neural layers of the decode paths, in plain PyTorch.
+"""Shared neural layers of the five model families, in plain PyTorch.
 
-Counterpart of the parts of ``repro.models.layers`` that the five model
-families' decode steps use.  Parameters are nested dicts of tensors in the
-JAX package's layout — weights ``(in, out)``, so a projection is ``x @ w`` —
-so ``models.convert`` carries a JAX parameter tree across unchanged.
-Compute dtype is bf16, normalisation, rotary embedding and softmax in f32,
-as in the JAX package.
+Counterpart of ``repro.models.layers``.  Parameters are nested dicts of
+tensors in the JAX package's layout — weights ``(in, out)``, so a
+projection is ``x @ w`` — so ``models.convert`` carries a JAX parameter
+tree across unchanged.  Compute dtype is bf16, normalisation, rotary
+embedding and softmax in f32, as in the JAX package.
+
+Full-sequence attention (training, prefill) is **chunked**: an online
+softmax over KV blocks, chunk for chunk as the JAX package computes it, so
+no (S × S) score tensor is ever held; each chunk's body is rematerialised
+under autograd (``remat``), as ``jax.checkpoint`` does there.
 
 Initialisers take ``gen``: a ``torch.Generator`` (the tensors are drawn on
 its device), or the meta device, which gives every shape and dtype and
@@ -21,8 +25,11 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = dict[str, Any]
+
+DEFAULT_ATTN_CHUNK = 512
 
 # f32 elements drawn at once: a stacked weight is drawn a block of rows at a
 # time, so the f32 temporary stays at 256 MiB whatever its leading axes
@@ -136,8 +143,17 @@ def rope(
 
 
 # ---------------------------------------------------------------------------
-# attention projections (GQA)
+# attention (GQA, chunked online softmax, causal / local / bidirectional)
 # ---------------------------------------------------------------------------
+
+
+def remat(fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when autograd is
+    recording (``jax.checkpoint``): only the inputs are saved, and ``fn``
+    runs again to rebuild what its backward needs."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,8 +167,9 @@ class AttnConfig:
     use_rope: bool = True
     rope_theta: float = 10000.0
     qkv_bias: bool = False
-    chunk: int = 512  # KV-block size of the JAX package's chunked prefill
-    q_chunks: int = 1
+    chunk: int = DEFAULT_ATTN_CHUNK  # KV-block size for the online softmax
+    q_chunks: int = 1  # Q blocks: >1 scans each only over the KV chunks it
+    #   can see (causal lower triangle / local window), from static bounds
 
     @property
     def q_dim(self) -> int:
@@ -192,6 +209,179 @@ def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.T
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _online_update(carry, s, vb):
+    """Fold one KV chunk's f32 scores ``s`` (B, H, Sq, c) and values ``vb``
+    (B, c, H, D) into the running max, sum and output."""
+    m, lsum, acc = carry
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p_blk = torch.exp(s - m_new[..., None])
+    l_new = lsum * alpha + p_blk.sum(dim=-1)
+    # the PV product takes bf16 operands and gives bf16, cast to f32 after
+    bf16 = torch.bfloat16
+    pv = torch.einsum("bhqk,bkhd->bhqd", p_blk.to(bf16), vb.to(bf16))
+    return m_new, l_new, acc * alpha[..., None] + pv.float()
+
+
+def _chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    causal: bool,
+    window: int | None,
+    chunk: int,
+    q_chunks: int = 1,
+) -> torch.Tensor:
+    """Flash-style attention: a loop over KV chunks with online softmax.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KV, D); positions (B, S).  Never holds
+    (Sq × Sk); the extra memory is (B, H, Sq/q_chunks, chunk).  With
+    ``q_chunks > 1`` (causal, Sq == Sk, Sq divisible) each Q block scans only
+    the KV chunks it can see, and the chunks wholly below its first position
+    skip the mask: the bounds are static, as in the JAX package.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = 1.0 / math.sqrt(D)
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    kc = k.reshape(B, n_chunks, chunk, KV, D)
+    vc = v.reshape(B, n_chunks, chunk, KV, D)
+    pc = kv_pos.reshape(B, n_chunks, chunk)
+
+    def scores(qf, kb):
+        kb = torch.repeat_interleave(kb, rep, dim=2)  # (B, c, H, D)
+        return torch.einsum("bqhd,bkhd->bhqk", qf, kb.float())
+
+    def values(vb):
+        return torch.repeat_interleave(vb, rep, dim=2)
+
+    def body(qf, qp, m, lsum, acc, kb, vb, pb):
+        s = scores(qf, kb)
+        mask = (pb >= 0)[:, None, None, :]
+        if causal:
+            mask = mask & (pb[:, None, None, :] <= qp[:, None, :, None])
+        if window is not None:
+            mask = mask & (pb[:, None, None, :] > qp[:, None, :, None] - window)
+        s = torch.where(mask, s, -1e30)
+        return _online_update((m, lsum, acc), s, values(vb))
+
+    def body_nomask(qf, qp, m, lsum, acc, kb, vb, pb):
+        # chunks wholly below this Q block's start are fully visible under
+        # the causal mask: no mask at all
+        return _online_update((m, lsum, acc), scores(qf, kb), values(vb))
+
+    def run_block(qf, qp, q_start, q_end):
+        """Online softmax of one Q block over its visible KV chunks."""
+        Sq_b = qf.shape[1]
+        m = torch.full((B, H, Sq_b), -1e30, dtype=torch.float32, device=q.device)
+        lsum = torch.zeros((B, H, Sq_b), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, Sq_b, D), dtype=torch.float32, device=q.device)
+        # static visibility: causal -> KV chunks past this block's last
+        # position never contribute; window -> chunks before the window's
+        # start never do (identity row -> position layout: training/prefill)
+        lo_c, hi_c, diag_c = 0, n_chunks, 0
+        if causal and Sq == Sk and q_chunks > 1:
+            hi_c = min(n_chunks, -(-q_end // chunk))
+            if window is None and pad == 0:
+                diag_c = max(lo_c, q_start // chunk)  # [lo_c, diag_c) unmasked
+            elif window is not None:
+                lo_c = max(0, (q_start - window) // chunk)
+        for c in range(lo_c, hi_c):
+            fn = body_nomask if c < diag_c else body
+            blk = (kc[:, c], vc[:, c], pc[:, c])
+            m, lsum, acc = remat(fn, qf, qp, m, lsum, acc, *blk)
+        out = acc / torch.clamp_min(lsum, 1e-30)[..., None]
+        return out.transpose(1, 2).to(q.dtype)  # (B, Sq_b, H, D)
+
+    qf_all = (q * scale).float()
+    if q_chunks <= 1 or Sq % q_chunks or Sq != Sk:
+        return run_block(qf_all, q_pos, 0, Sk)
+    qb = Sq // q_chunks
+    outs = []
+    for i in range(q_chunks):
+        rows = slice(i * qb, (i + 1) * qb)
+        outs.append(run_block(qf_all[:, rows], q_pos[:, rows], i * qb, (i + 1) * qb))
+    return torch.cat(outs, dim=1)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def attention(
+    p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Self-attention over a full sequence (training / prefill)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = _chunked_attention(
+        q, k, v, positions, positions, cfg.causal, cfg.window, cfg.chunk, cfg.q_chunks
+    )
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def cross_attention(
+    p: Params, cfg: AttnConfig, x: torch.Tensor, kv: torch.Tensor
+) -> torch.Tensor:
+    """Encoder-decoder cross attention (no RoPE on the kv side)."""
+    B, S, _ = x.shape
+    Sk = kv.shape[1]
+    pos_q = _positions(B, S, x.device)
+    pos_k = _positions(B, Sk, x.device)
+    cfg_nc = dataclasses.replace(cfg, causal=False, window=None, use_rope=False)
+    q, _, _ = _project_qkv(p, cfg_nc, x, pos_q)
+    kv_shape = (B, Sk, cfg.n_kv_heads, cfg.head_dim)
+    k = (kv @ p["wk"]).reshape(kv_shape)
+    v = (kv @ p["wv"]).reshape(kv_shape)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(k.dtype).reshape(kv_shape[2:])
+        v = v + p["bv"].to(v.dtype).reshape(kv_shape[2:])
+    out = _chunked_attention(q, k, v, pos_q, pos_k, False, None, cfg.chunk)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def decode_attention(
+    p: Params,
+    cfg: AttnConfig,
+    x: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,
+):
+    """Single-token decode against a (B, S_max, KV, D) cache, through the
+    chunked attention.
+
+    Returns (out, new_k_cache, new_v_cache); the caches passed in are not
+    written.  ``cache_len``: (B,) ints — the number of valid entries; the
+    new token is written at that index.
+    """
+    B, S1, _ = x.shape
+    if S1 != 1:
+        raise ValueError("decode_attention expects a single new token")
+    pos = cache_len[:, None].to(torch.int32)  # (B, 1)
+    q, k, v = _project_qkv(p, cfg, x, pos)
+    rows = torch.arange(B, device=x.device)
+    idx = cache_len.long()
+    k_cache = k_cache.index_put((rows, idx), k[:, 0].to(k_cache.dtype))
+    v_cache = v_cache.index_put((rows, idx), v[:, 0].to(v_cache.dtype))
+    kv_pos = _positions(B, k_cache.shape[1], x.device)
+    # entries beyond cache_len are masked by the causal predicate
+    out = _chunked_attention(
+        q, k_cache, v_cache, pos, kv_pos, True, cfg.window, cfg.chunk
+    )
+    return out.reshape(B, 1, cfg.q_dim) @ p["wo"], k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

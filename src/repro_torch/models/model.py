@@ -1,7 +1,9 @@
-"""Model assembly for the five families' decode paths, in plain PyTorch.
+"""Model assembly for the five families, in plain PyTorch.
 
-Counterpart of ``repro.models.model``'s decode side: ``ModelConfig``,
-``init_params``, ``init_cache`` and ``decode_step`` for every family —
+Counterpart of ``repro.models.model``: ``ModelConfig``, ``init_params``,
+the full-sequence paths (``forward``, ``prefill``, ``loss_fn``, the
+Whisper encoder ``_encode``) and the decode side (``init_cache``,
+``decode_step``) for every family —
 
 * ``dense``  — llama-style decoder (and the internvl2 backbone);
 * ``moe``    — dense backbone with MoE FFNs (dbrx, phi3.5-moe);
@@ -15,8 +17,10 @@ Counterpart of ``repro.models.model``'s decode side: ``ModelConfig``,
 The parameter tree has the JAX package's layout — per-layer parameters
 stacked on a leading layer axis, weights ``(in, out)`` — and the JAX
 ``lax.scan`` over that axis is a Python loop here.  The full-sequence paths
-(``forward``, ``prefill``, ``loss_fn``, the encoder) are not ported yet
-(ROADMAP.md, "Modules to port", item 5).
+unbind each stack once per call (under autograd, the backward of that is a
+single ``stack``, where indexing layer by layer would build a stack-sized
+gradient per layer) and rematerialise each layer body when ``cfg.remat``
+is set, as ``jax.checkpoint`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,16 +32,24 @@ from typing import Any
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import leaves
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnConfig
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.rglru import (
     RGLRUConfig,
     init_rglru,
+    rglru_forward,
     rglru_init_cache,
     rglru_step,
 )
-from repro_torch.models.ssm import SSMConfig, init_ssd, ssd_init_cache, ssd_step
+from repro_torch.models.ssm import (
+    SSMConfig,
+    init_ssd,
+    ssd_forward,
+    ssd_init_cache,
+    ssd_step,
+)
 
 Params = dict[str, Any]
 
@@ -123,15 +135,7 @@ class ModelConfig:
     def param_count(self) -> int:
         """Exact parameter count, from the shapes ``init_params`` makes on
         the meta device (nothing is allocated)."""
-        return sum(t.numel() for t in _leaves(init_params(self, device="meta")))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+        return sum(t.numel() for t in leaves(init_params(self, device="meta")))
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -139,6 +143,15 @@ def _layer(tree: Params, i: int) -> Params:
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree: Params, n: int) -> list[Params]:
+    """The ``n`` layers of a tree stacked on a leading layer axis, each leaf
+    unbound once (views)."""
+    if isinstance(tree, dict):
+        cols = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return tree.unbind(0)
 
 
 def _norm_init(cfg: ModelConfig, gen, dim: int, lead: tuple[int, ...] = ()) -> Params:
@@ -253,6 +266,168 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return p
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _dense_block_fwd(
+    cfg: ModelConfig, bp: Params, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    z = _norm(cfg, bp["attn_norm"], x)
+    h = x + L.attention(bp["attn"], cfg.attn_cfg, z, positions)
+    z = _norm(cfg, bp["mlp_norm"], h)
+    if cfg.family == "moe":
+        ff = moe_ffn(bp["moe"], z, cfg.top_k, cfg.mlp_kind, cfg.capacity_factor)
+    else:
+        ff = L.mlp(bp["mlp"], z, cfg.mlp_kind)
+    return h + ff
+
+
+def _hybrid_sub_fwd(
+    cfg: ModelConfig, sp: Params, kind: str, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    z = _norm(cfg, sp["temporal_norm"], x)
+    if kind == "rec":
+        t = rglru_forward(sp["rglru"], cfg.rglru_cfg, z)
+    else:
+        t = L.attention(sp["attn"], cfg.local_attn_cfg, z, positions)
+    h = x + t
+    return h + L.mlp(sp["mlp"], _norm(cfg, sp["mlp_norm"], h), cfg.mlp_kind)
+
+
+def _scan_blocks(
+    cfg: ModelConfig, blocks: Params, x: torch.Tensor, body
+) -> torch.Tensor:
+    """``body(layer_params, h)`` over the stacked layers in order, each layer
+    rematerialised in the backward pass when ``cfg.remat`` is set."""
+    n = leaves(blocks)[0].shape[0]
+    for bp in _unstack(blocks, n):
+        x = L.remat(body, bp, x) if cfg.remat else body(bp, x)
+    return x
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    frames: torch.Tensor | None = None,
+    patches: torch.Tensor | None = None,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Full-sequence logits (or final hidden states).
+
+    tokens: (B, S) ints.  ``frames`` (audio stub, B×enc_seq×d) feeds the
+    encdec encoder; ``patches`` (vision stub, B×n_patches×d) is prepended
+    to the token embeddings (internvl2).  Returns (B, S, vocab) logits for
+    the token positions, or the normed (B, S, d) hidden states when
+    ``return_hidden`` (prefill needs only the last position's logits).
+    """
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(torch.bfloat16)
+    n_prefix = 0
+    if cfg.frontend == "vision":
+        if patches is None:
+            raise ValueError("vision frontend needs `patches`")
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        n_prefix = patches.shape[1]
+    positions = L._positions(B, x.shape[1], x.device)
+
+    if cfg.family in ("dense", "moe"):
+
+        def body(bp, h):
+            return _dense_block_fwd(cfg, bp, h, positions)
+
+        x = _scan_blocks(cfg, params["blocks"], x, body)
+    elif cfg.family == "ssm":
+
+        def body(bp, h):
+            return h + ssd_forward(bp["ssd"], cfg.ssm_cfg, _norm(cfg, bp["norm"], h))
+
+        x = _scan_blocks(cfg, params["blocks"], x, body)
+    elif cfg.family == "hybrid":
+
+        def body(bp, h):
+            for i, kind in enumerate(cfg.pattern):
+                h = _hybrid_sub_fwd(cfg, bp[f"sub{i}"], kind, h, positions)
+            return h
+
+        x = _scan_blocks(cfg, params["blocks"], x, body)
+        i = 0
+        while f"tail{i}" in params:
+            x = _hybrid_sub_fwd(cfg, params[f"tail{i}"], "rec", x, positions)
+            i += 1
+    elif cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("encdec needs `frames` (audio stub)")
+        mem = _encode(cfg, params, frames)
+        x = x + params["dec_pos"][:S].to(x.dtype)
+        a_cfg = dataclasses.replace(cfg.attn_cfg, use_rope=False)
+
+        def body(bp, h):
+            z = _norm(cfg, bp["attn_norm"], h)
+            h = h + L.attention(bp["attn"], a_cfg, z, positions)
+            z = _norm(cfg, bp["cross_norm"], h)
+            h = h + L.cross_attention(bp["cross"], a_cfg, z, mem)
+            return h + L.mlp(bp["mlp"], _norm(cfg, bp["mlp_norm"], h), cfg.mlp_kind)
+
+        x = _scan_blocks(cfg, params["dec_blocks"], x, body)
+    else:
+        raise ValueError(cfg.family)
+
+    x = _norm(cfg, params["final_norm"], x)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    if return_hidden:
+        return x
+    return x @ params["lm_head"]
+
+
+def _encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stubbed frame embeddings (B, enc_seq, d)."""
+    x = frames.to(torch.bfloat16) + params["enc_pos"].to(torch.bfloat16)
+    Bz, Se, _ = x.shape
+    pos = L._positions(Bz, Se, x.device)
+    enc_attn = dataclasses.replace(cfg.attn_cfg, causal=False, use_rope=False)
+
+    def body(bp, h):
+        h = h + L.attention(bp["attn"], enc_attn, _norm(cfg, bp["attn_norm"], h), pos)
+        return h + L.mlp(bp["mlp"], _norm(cfg, bp["mlp_norm"], h), cfg.mlp_kind)
+
+    x = _scan_blocks(cfg, params["enc_blocks"], x, body)
+    return _norm(cfg, params["enc_final_norm"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy (labels = tokens shifted by the caller)."""
+    logits = forward(
+        cfg,
+        params,
+        batch["tokens"],
+        frames=batch.get("frames"),
+        patches=batch.get("patches"),
+    ).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    labels = batch["labels"].long()[..., None]
+    gold = torch.take_along_dim(logits, labels, dim=-1)[..., 0]
+    return torch.mean(logz - gold)
+
+
+def prefill(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    frames: torch.Tensor | None = None,
+    patches: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Prefill = full forward returning last-position logits; the vocab
+    projection runs on the last position only."""
+    hidden = forward(
+        cfg, params, tokens, frames=frames, patches=patches, return_hidden=True
+    )
+    return hidden[:, -1:] @ params["lm_head"]
 
 
 # ---------------------------------------------------------------------------

@@ -378,3 +378,28 @@ def test_overhead_pair_interleaves_parts(monkeypatch, on_first):
     for j, ((first, k0), (second, k1)) in enumerate(pairs):
         assert k0 == k1 == j % n and {first, second} == {"off", "on"}
         assert (first == "on") == (((j // n + k0) % 2 == 0) == on_first)
+
+
+def test_pass_instructions_count_the_armed_side():
+    """``--obs-split``'s bytecode count: the same number for the same pass
+    (no host's speed in it), more on the armed side, and the monitoring
+    tool released afterwards."""
+    C._traffic_pass("repro_torch", None, False)  # warm the cost caches
+    off = [C._pass_instructions("repro_torch", None, False) for _ in range(2)]
+    on = C._pass_instructions("repro_torch", PB.Observability, False)
+    assert off[0] == off[1] and on > off[0] > 0
+    assert sys.monitoring.get_tool(sys.monitoring.PROFILER_ID) is None
+
+
+def test_obs_pairs_prints_the_gates_estimator(monkeypatch, capsys):
+    """``--obs-pairs N``: N samples a side on each gated path, the floor
+    ratio the gate reads (min armed / min off) and the median pair ratio,
+    one JSON line."""
+    monkeypatch.setattr(C, "OBS_PASSES", 1)
+    assert C.obs_pairs(2) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == {"default", "spans"}
+    for row in out.values():
+        assert len(row["off"]) == len(row["on"]) == 2
+        assert row["ratio"] == min(row["on"]) / min(row["off"])
+        assert row["median_ratio"] > 0.0

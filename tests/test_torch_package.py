@@ -90,12 +90,30 @@ RESILIENCE_PATH = [
 ]
 
 
+# the full-sequence paths and the single-card training path
+TRAIN_PATH = [
+    "_tree.py",
+    "distributed/compression.py",
+    "distributed/sharding.py",
+    "launch/__init__.py",
+    "launch/mesh.py",
+    "launch/train.py",
+    "models/layers.py",
+    "models/model.py",
+    "training/__init__.py",
+    "training/checkpoint.py",
+    "training/data.py",
+    "training/optimizer.py",
+    "training/train_loop.py",
+]
+
+
 def test_scan_sees_every_module():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    for rel in PAPER_PATH + SERVE_PATH + RESILIENCE_PATH:
+    for rel in PAPER_PATH + SERVE_PATH + RESILIENCE_PATH + TRAIN_PATH:
         assert os.path.join(PORT, *rel.split("/")) in files, rel
-    assert len(files) >= 56
+    assert len(files) >= 68
 
 
 def test_front_door_imports_no_jax_and_no_repro():
@@ -146,21 +164,41 @@ def test_scan_catches_forbidden_imports(tmp_path):
 
 def _creating_calls():
     from repro_torch.configs import get
+    from repro_torch.distributed.tenancy import device_grid
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.serving.kv_cache import DecodeSession
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.train_loop import init_sharded
 
     cfg = get("llama3.2-3b").smoke
+    card = Mesh(device_grid("cuda", 1), ("data", "model"))  # what make_host_mesh gives
     return {
         "init_params": lambda: init_params(cfg),
         "init_cache": lambda: init_cache(cfg, 1, 8),
         "params_from_jax": lambda: params_from_jax({"w": [[1.0]]}),
         "DecodeSession": lambda: DecodeSession(cfg, {}, 1, 8),
+        "init_sharded": lambda: init_sharded(cfg, card),
+        "make_batch": lambda: make_batch(DataConfig(cfg.vocab, 2, 8), 0),
+        "make_host_mesh": lambda: make_host_mesh(),
+        "launch.train.main": lambda: train.main(["--smoke", "--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize(
-    "entry", ["init_params", "init_cache", "params_from_jax", "DecodeSession"]
+    "entry",
+    [
+        "init_params",
+        "init_cache",
+        "params_from_jax",
+        "DecodeSession",
+        "init_sharded",
+        "make_batch",
+        "make_host_mesh",
+        "launch.train.main",
+    ],
 )
 def test_creating_entry_points_default_to_cuda(entry, monkeypatch):
     """Without ``device=`` an entry point that creates tensors targets
