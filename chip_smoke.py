@@ -45,6 +45,16 @@ check:
    profiled and device ms, busy share, the bytes one step must move over
    3.35 TB/s, resident and peak memory, init s.  No partitioned-GEMM
    kernel is launched (checked), and the phase fits in 120 s.
+   Dense: the smoke configs of mistral-nemo-12b, nemotron-4-15b,
+   internvl2-26b and deepseek-coder-33b decode on the card and on the CPU
+   within 3e-2; then the four at their published widths and full depth,
+   random bf16 weights, through ``MultiTenantEngine`` one engine at a time
+   (the first two together, 55.8 GB; internvl2-26b's backbone alone;
+   deepseek-coder-33b alone, 66.7 GB), each engine freed before the next,
+   with the families' slots and requests and the same per-tenant numbers;
+   then ``python -m repro_torch.launch.serve``'s ``main`` on the card with
+   the JAX launcher's defaults.  No partitioned-GEMM kernel is launched,
+   and the phase fits in 180 s.
    Train: the smoke configs of llama3.2-3b, phi3.5-moe, mamba2,
    recurrentgemma, whisper and internvl2 (the vision frontend) take 2 train
    steps on the card and on the CPU from the same parameters and batches;
@@ -128,6 +138,7 @@ import functools
 import gc
 import hashlib
 import importlib
+import io
 import json
 import math
 import os
@@ -206,6 +217,16 @@ SMOKE_STEPS = 8  # card-vs-CPU decode steps of each smoke config
 FAMILY_SLOTS, FAMILY_MAX_SEQ = 4, 128
 FAMILY_REQUESTS, FAMILY_PROMPT, FAMILY_NEW = 3, 8, 16
 FAMILY_PHASE_S = 120.0
+# the dense phase: the dense configs that fit one card in bf16, at full width
+# and depth, one engine at a time (the first two share one, 55.8 GB; the
+# 66.7 GB deepseek-coder-33b fits only alone), with FAMILY_SLOTS and the
+# families' requests; dbrx-132b (263 GB) does not fit
+DENSE_ENGINES = (
+    ("mistral-nemo-12b", "nemotron-4-15b"),
+    ("internvl2-26b",),
+    ("deepseek-coder-33b",),
+)
+DENSE_PHASE_S = 180.0
 # the train phase: the smoke configs of every family (and the vision frontend)
 # card vs CPU, a checkpoint round trip on the card, then llama3.2-3b trained at
 # full width and depth; the optimizer is launch/train.py's for TRAIN_STEPS
@@ -834,41 +855,35 @@ def smoke_decode_check(torch, archs) -> None:
         log(f"{arch} smoke decode_step on the card matches the CPU, lens {lens}")
 
 
-def families_phase(torch, K) -> dict:
-    """Four tenants of the moe, ssm, hybrid and encdec families at their
-    published widths, random bf16 weights, through one ``MultiTenantEngine``
-    on the card; no partitioned-GEMM kernel is launched (decode is plain
-    PyTorch, as the JAX package's is plain ``jnp``)."""
+def serve_engine(torch, phase: str, tenants, seed: int) -> dict:
+    """One ``MultiTenantEngine`` on the card: each (name, config) of
+    ``tenants`` admitted through ``launch.serve.add_tenant`` (random bf16
+    weights drawn on the card from ``seed`` on), ``FAMILY_REQUESTS``
+    requests of ``FAMILY_PROMPT`` + ``FAMILY_NEW`` tokens each, served to
+    completion.  Every request must finish with tokens in the vocab and the
+    last logits must be finite.  Per tenant: tokens/s, rounds, decode-step
+    host, profiled and device ms (all slots live), busy share, the bytes
+    one step must move over 3.35 TB/s, resident and peak memory, init s."""
     from repro_torch.configs import get
     from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
-    from repro_torch.models.model import decode_step, init_params
+    from repro_torch.launch.serve import add_tenant
+    from repro_torch.models.model import decode_step
     from repro_torch.serving.engine import MultiTenantEngine
-    from repro_torch.serving.kv_cache import DecodeSession
-
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    check(torch.cuda.memory_allocated() < 1 << 30, "the llama tenants were not freed")
-    K.reset_launch_counts()
-    smoke_decode_check(torch, FAMILY_SMOKES)
 
     eng = MultiTenantEngine(TenantMeshManager(device_grid("cuda", 1)), policy="equal")
     sessions, stats, seconds = {}, {}, {}
-    for i, (arch, depth) in enumerate(FAMILY_TENANTS):
-        cfg = get(arch).model
-        if depth is not None:
-            cfg = dataclasses.replace(cfg, n_layers=depth)
+    for i, (arch, cfg) in enumerate(tenants):
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        params = init_params(cfg, seed=10 + i)
-        s = DecodeSession(cfg, params, batch_slots=FAMILY_SLOTS, max_seq=FAMILY_MAX_SEQ)
+        s = add_tenant(eng, arch, cfg, seed + i, FAMILY_SLOTS, FAMILY_MAX_SEQ)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = cfg.param_count()
+        full = get(arch).model.n_layers
         stats[arch] = {
             "family": cfg.family,
             "layers": cfg.n_layers,
-            "published_layers": get(arch).model.n_layers,
+            "published_layers": full,
             "parameters": n_params,
             "resident_bytes": torch.cuda.memory_allocated() - before,
             "init_s": init_s,
@@ -877,15 +892,13 @@ def families_phase(torch, K) -> dict:
         s.admit = _timed(s.admit, seconds, arch)
         s.step = _timed(s.step, seconds, arch)
         sessions[arch] = s
-        eng.add_tenant(arch, s, flops_per_token=2.0 * n_params)
-        full = get(arch).model.n_layers
-        cut = f", cut to {cfg.n_layers} of {full} layers" if depth else ""
+        cut = f", cut to {cfg.n_layers} of {full} layers" if cfg.n_layers < full else ""
         log(
-            f"families: {arch} ({cfg.family}), {n_params} parameters{cut}, "
+            f"{phase}: {arch} ({cfg.family}), {n_params} parameters{cut}, "
             f"ready in {init_s:.2f} s"
         )
 
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     reqs = {}
     for arch, s in sessions.items():
         shape = (FAMILY_REQUESTS, FAMILY_PROMPT)
@@ -895,7 +908,7 @@ def families_phase(torch, K) -> dict:
     t0 = time.perf_counter()
     n_rounds = 0
     while eng.tenants:
-        check(n_rounds < 500, "families: the engine did not drain")
+        check(n_rounds < 500, f"{phase}: the engine did not drain")
         for arch in eng.step():
             rounds[arch] += 1
         n_rounds += 1
@@ -948,22 +961,102 @@ def families_phase(torch, K) -> dict:
                 "top_device_ms": top,
             }
         )
-        log(f"families {arch}: {json.dumps(stats[arch])}")
+        log(f"{phase} {arch}: {json.dumps(stats[arch])}")
+    emitted = sum(st["tokens_emitted"] for st in stats.values())
+    log(
+        f"{phase}: {len(sessions)} tenants drained in {n_rounds} rounds, "
+        f"{wall:.2f} s, {emitted / wall:.1f} tokens/s"
+    )
+    return {"tenants": stats, "rounds": n_rounds, "wall_s": wall}
+
+
+def _engine_freed(torch, what: str) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 1 << 30, f"{what} were not freed")
+
+
+def families_phase(torch, K) -> dict:
+    """Four tenants of the moe, ssm, hybrid and encdec families at their
+    published widths, random bf16 weights, through one ``MultiTenantEngine``
+    on the card; no partitioned-GEMM kernel is launched (decode is plain
+    PyTorch, as the JAX package's is plain ``jnp``)."""
+    from repro_torch.configs import get
+
+    t_phase = time.perf_counter()
+    _engine_freed(torch, "the llama tenants")
+    K.reset_launch_counts()
+    smoke_decode_check(torch, FAMILY_SMOKES)
+    tenants = []
+    for arch, depth in FAMILY_TENANTS:
+        cfg = get(arch).model
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        tenants.append((arch, cfg))
+    res = serve_engine(torch, "families", tenants, seed=10)
     launches = K.launch_counts()
     check(sum(launches.values()) == 0, f"the families phase launched: {launches}")
     phase_s = time.perf_counter() - t_phase
-    emitted = sum(st["tokens_emitted"] for st in stats.values())
-    log(
-        f"families: {len(sessions)} tenants drained in {n_rounds} rounds, "
-        f"{wall:.2f} s, {emitted / wall:.1f} tokens/s; {launches}; "
-        f"phase {phase_s:.1f} s"
-    )
+    log(f"families: {launches}; phase {phase_s:.1f} s")
     check(phase_s <= FAMILY_PHASE_S, f"families phase took {phase_s:.1f} s")
-    return {"tenants": stats, "rounds": n_rounds, "wall_s": wall, "phase_s": phase_s}
+    return {**res, "phase_s": phase_s}
 
 
 # ---------------------------------------------------------------------------
-# 3c. train: the full-sequence forward and the single-card training path
+# 3c. dense: the dense configs that fit one card, at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def serve_cli_on_card() -> dict:
+    """``python -m repro_torch.launch.serve`` with the JAX launcher's
+    defaults (three smoke-config tenants), called in this process on the
+    card; its printout goes to the log."""
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main([])
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"launch.serve: {line}")
+    check(rc == 0, f"launch.serve exited {rc}")
+    lines = text.splitlines()
+    queued = [ln for ln in lines if ln.startswith("tenant ")]
+    drained = re.search(r"drained in (\d+) rounds", text)
+    head = "partition width history (round, tenant, cols):"
+    printed = len(queued) == 3 and drained and head in lines and lines[-1] != head
+    check(bool(printed), "launch.serve: queued lines, rounds or width history")
+    return {"queued": queued, "rounds": int(drained.group(1))}
+
+
+def dense_phase(torch, K) -> dict:
+    """The dense configs that fit one card in bf16, at full width and depth
+    on random weights, through ``MultiTenantEngine`` one engine at a time
+    (``DENSE_ENGINES``), each engine freed before the next; their smoke
+    configs card vs CPU; then ``launch.serve`` on the card.  No
+    partitioned-GEMM kernel is launched."""
+    from repro_torch.configs import get
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    smoke_decode_check(torch, [a for archs in DENSE_ENGINES for a in archs])
+    engines = []
+    for i, archs in enumerate(DENSE_ENGINES):
+        _engine_freed(torch, "the previous engine's tenants")
+        tenants = [(a, get(a).model) for a in archs]
+        engines.append(serve_engine(torch, "dense", tenants, seed=20 + 10 * i))
+    _engine_freed(torch, "the dense tenants")
+    cli = serve_cli_on_card()
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the dense phase launched: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"dense: {launches}; phase {phase_s:.1f} s")
+    check(phase_s <= DENSE_PHASE_S, f"dense phase took {phase_s:.1f} s")
+    return {"engines": engines, "launch_serve": cli, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# 3d. train: the full-sequence forward and the single-card training path
 # ---------------------------------------------------------------------------
 
 
@@ -2520,6 +2613,7 @@ def main() -> int:
     kernels = kernel_phase(torch, K, details)
     serving_phase(torch)
     families_phase(torch, K)
+    dense_phase(torch, K)
     train_phase(torch, K)
     paper_phase(K)
     serve_phase()

@@ -138,6 +138,27 @@ class NamedSharding:
             )
         return t.to(self.mesh.devices.flat[0])
 
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The shape each device holds of a ``shape`` tensor: every dim
+        divided by the product of the mesh axes its spec entry names (as
+        ``jax.sharding.NamedSharding.shard_shape``; raises where a dim does
+        not divide)."""
+        sizes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        out = []
+        for i, dim in enumerate(shape):
+            entry = self.spec[i] if i < len(self.spec) else None
+            if entry is None:
+                names = ()
+            else:
+                names = entry if isinstance(entry, tuple) else (entry,)
+            parts = int(np.prod([sizes[a] for a in names]))
+            if dim % parts:
+                raise ValueError(
+                    f"dim {i} of {tuple(shape)} does not split {parts} ways"
+                )
+            out.append(dim // parts)
+        return tuple(out)
+
 
 def _pspec(*entries) -> tuple:
     """A spec in ``PartitionSpec``'s normal form: an axis list is a tuple,

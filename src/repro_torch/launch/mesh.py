@@ -5,6 +5,11 @@ axis names and a NumPy object array of ``torch.device``s in the mesh's
 shape — that ``distributed.sharding`` reads as the JAX package reads a
 ``jax.sharding.Mesh``.  Building one allocates nothing and joins no
 process group.
+
+A mesh on ``device="meta"`` holds placeholder devices, as many as its
+shape asks for: the port's counterpart of the JAX package's
+``--xla_force_host_platform_device_count=512``, on which the dry run
+(``launch.dryrun``) traces the production meshes on any host.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ class Mesh:
 
 def _devices(device, n: int) -> list[torch.device]:
     """The first ``n`` devices of ``device``'s type; raises if there are
-    fewer (the CPU counts as one)."""
+    fewer (the CPU counts as one; the meta device is as many as asked)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return [dev] * n
     if dev.type == "cuda":
         have = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
@@ -51,7 +58,7 @@ def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], device) -> Mesh:
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     """16×16 (256 cards) or 2×16×16 multi-pod (512 cards); raises when
-    there are fewer.
+    there are fewer (``device="meta"``: placeholders, never short).
 
     Axes: ("data", "model") — FSDP/DP over "data", TP over "model";
     multi-pod adds a leading pure-DP "pod" axis.

@@ -193,22 +193,31 @@ def init_attention(gen, cfg: AttnConfig, lead: tuple[int, ...] = ()) -> Params:
     return p
 
 
-def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+def _project_q(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The query projection alone: cross attention takes its keys and
+    values from elsewhere (in the JAX package XLA drops the unused ones)."""
     B, S, _ = x.shape
     q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    B, S, _ = x.shape
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.use_rope:
-        q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return _project_q(p, cfg, x, positions), k, v
 
 
 def _online_update(carry, s, vb):
@@ -341,7 +350,7 @@ def cross_attention(
     pos_q = _positions(B, S, x.device)
     pos_k = _positions(B, Sk, x.device)
     cfg_nc = dataclasses.replace(cfg, causal=False, window=None, use_rope=False)
-    q, _, _ = _project_qkv(p, cfg_nc, x, pos_q)
+    q = _project_q(p, cfg_nc, x, pos_q)
     kv_shape = (B, Sk, cfg.n_kv_heads, cfg.head_dim)
     k = (kv @ p["wk"]).reshape(kv_shape)
     v = (kv @ p["wv"]).reshape(kv_shape)

@@ -513,14 +513,16 @@ def _decode_attn(
     """
     B = x.shape[0]
     S = k_cache.shape[1]
-    q, k, v = L._project_qkv(p, cfg_a, x, cache_len[:, None])
     if update_cache:
+        q, k, v = L._project_qkv(p, cfg_a, x, cache_len[:, None])
         rows = torch.arange(B, device=x.device)
         slot = (cache_len % S if ring else cache_len).long()
         writes = ((k_cache, k[:, 0]), (v_cache, v[:, 0]))
         kept = [cache[rows, slot] for cache, _ in writes] if live is not None else []
         for cache, new in writes:
             cache[rows, slot] = new.to(cache.dtype)
+    else:
+        q = L._project_q(p, cfg_a, x, cache_len[:, None])
     base = torch.arange(S, device=x.device)[None, :]
     length = cache_len[:, None].long()
     if ring:

@@ -7,9 +7,10 @@ Counterpart of ``repro.models.rglru``.  The recurrence, per channel:
     a_t = exp(-c · softplus(Λ) · r_t)       # c = 8
     h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
 
-Over a sequence it runs as a plain loop over time in f32 (the JAX package
-runs an associative scan: the same recurrence, summed in another order);
-decode is one step.  The block: conv1d → RG-LRU, gated by a GELU branch.
+Over a sequence it runs as a scan in log2(S) doubling steps in f32, as
+the JAX package's associative scan runs in log depth (the same recurrence;
+the two trees of products round in a different order); decode is one
+step.  The block: conv1d → RG-LRU, gated by a GELU branch.
 """
 
 from __future__ import annotations
@@ -75,12 +76,23 @@ def rglru_forward(p: Params, cfg: RGLRUConfig, u: torch.Tensor) -> torch.Tensor:
     x = u @ p["in_x"]
     gate = gelu(u @ p["in_gate"])
     a, b = _gates(p, causal_conv1d(p["conv"], x))  # (B, S, w) each, f32
-    h = torch.empty_like(b)
-    state = torch.zeros_like(b[:, 0])
-    for t in range(u.shape[1]):
-        state = a[:, t] * state + b[:, t]
-        h[:, t] = state
-    return (h.to(u.dtype) * gate) @ p["out"]
+    return (_linear_scan(a, b).to(u.dtype) * gate) @ p["out"]
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t·h_{t-1} + b_t`` along axis 1 from ``h_{-1} = 0``.
+
+    Each doubling step composes every element with the one ``off`` before
+    it, so after it element ``t`` holds the recurrence over its last
+    ``2·off`` inputs: log2(S) steps of a few whole-tensor ops each, where a
+    loop over time launches S steps of tiny ones."""
+    S, off = a.shape[1], 1
+    while off < S:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], dim=1)
+        if 2 * off < S:
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
 
 
 def rglru_init_cache(

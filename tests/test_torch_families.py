@@ -8,9 +8,9 @@ NumPy seed.
 Tolerances: bf16 results are held to 3e-2 (rtol = atol), the JAX package's
 own bf16 tolerance (tests/test_kernels.py ``TOL``); f32 results to 1e-4,
 its f32 tolerance.  GELU and SiLU are evaluated the way ``jax.nn``
-evaluates them on bf16, bit for bit.  The RG-LRU's sequence path is a loop
-over time where the JAX package runs an associative scan: the same f32
-recurrence summed in another order, well inside 1e-4.
+evaluates them on bf16, bit for bit.  The RG-LRU's sequence path is a
+doubling scan where the JAX package runs an associative scan: the same f32
+recurrence, its products grouped in another tree, well inside 1e-4.
 
 The decode step is held against the JAX ``decode_step`` evaluated op by op
 (``jax.disable_jit()``), where every ``jnp`` operation rounds where it is

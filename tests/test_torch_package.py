@@ -108,12 +108,22 @@ TRAIN_PATH = [
 ]
 
 
+# the launch layer: the dry run's steps, HLO-text analysis, the serve CLI
+LAUNCH_PATH = [
+    "launch/dryrun.py",
+    "launch/hlo_analysis.py",
+    "launch/serve.py",
+    "launch/steps.py",
+]
+
+
 def test_scan_sees_every_module():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
-    for rel in PAPER_PATH + SERVE_PATH + RESILIENCE_PATH + TRAIN_PATH:
+    paths = PAPER_PATH + SERVE_PATH + RESILIENCE_PATH + TRAIN_PATH + LAUNCH_PATH
+    for rel in paths:
         assert os.path.join(PORT, *rel.split("/")) in files, rel
-    assert len(files) >= 68
+    assert len(files) >= 72
 
 
 def test_front_door_imports_no_jax_and_no_repro():
@@ -165,7 +175,7 @@ def test_scan_catches_forbidden_imports(tmp_path):
 def _creating_calls():
     from repro_torch.configs import get
     from repro_torch.distributed.tenancy import device_grid
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
     from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import init_cache, init_params
@@ -184,6 +194,7 @@ def _creating_calls():
         "make_batch": lambda: make_batch(DataConfig(cfg.vocab, 2, 8), 0),
         "make_host_mesh": lambda: make_host_mesh(),
         "launch.train.main": lambda: train.main(["--smoke", "--steps", "1"]),
+        "launch.serve.main": lambda: serve.main(["--requests", "1"]),
     }
 
 
@@ -198,6 +209,7 @@ def _creating_calls():
         "make_batch",
         "make_host_mesh",
         "launch.train.main",
+        "launch.serve.main",
     ],
 )
 def test_creating_entry_points_default_to_cuda(entry, monkeypatch):
