@@ -68,6 +68,16 @@ check:
    parameter over 3.35 TB/s) and peak memory; the last step is profiled
    for its device ms.  Losses are finite, no partitioned-GEMM kernel is
    launched, and the phase fits in 150 s.
+   Placement: a one-rank NCCL process group (``init_distributed``, as
+   ``torchrun`` starts one) and ``make_host_mesh()`` over it; llama3.2-3b
+   at full width trains the train phase's steps through the sharded step
+   (DTensor state, each layer gathered whole and each gradient
+   reduce-scattered back over NCCL), its losses within 3e-2 of the train
+   phase's (bit-equality printed), host ms a step beside the one-device
+   step's, NCCL kernels a step (``torch.profiler``), resident and peak
+   memory; at smoke size a checkpoint of the sharded state round-trips
+   bit for bit and one int8 ``make_dp_train_step`` step runs.  No
+   partitioned-GEMM kernel is launched, and the phase fits in 90 s.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -244,6 +254,11 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
 TRAIN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)  # launch.train's
 TRAIN_CKPT_DIR = "build/train_ckpt"  # gitignored; removed after the round trip
 TRAIN_PHASE_S = 150.0
+# the placement phase: llama3.2-3b at full width through the sharded step on a
+# one-rank NCCL mesh (the train phase's batch, seed and steps); then at smoke
+# size one int8 DP step and a checkpoint round trip of the sharded state
+PLACEMENT_CKPT_DIR = "build/placement_ckpt"  # gitignored; removed after use
+PLACEMENT_PHASE_S = 90.0
 # AdamW's bytes a parameter: the bf16 grad read, the f32 master, m and v read
 # and written, the bf16 param written
 ADAMW_BYTES_PER_PARAM = 28
@@ -1321,6 +1336,221 @@ def train_phase(torch, K) -> dict:
     log(f"train: {json.dumps(stats)}; {launches}")
     phase_s = stats["phase_s"]
     check(phase_s <= TRAIN_PHASE_S, f"train phase took {phase_s:.1f} s")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# 3e. placement: the sharded step on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def placement_train(torch, mesh, train: dict) -> dict:
+    """llama3.2-3b at full width and depth through the sharded step on
+    ``mesh``: params and AdamW state DTensors, each layer gathered whole
+    for use and each gradient reduce-scattered back (NCCL collectives over
+    the one rank); the train phase's seed, batches and steps, so the
+    losses must equal its losses within ``BF16_TOL``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_sharded,
+        make_train_step,
+    )
+
+    cfg = get(TRAIN_ARCH).model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state = init_sharded(cfg, mesh, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    step, jitted = make_train_step(cfg, mesh, TrainConfig(opt=OptConfig(**TRAIN_OPT)))
+    dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED)
+    rows = []
+    for i in range(TRAIN_STEPS):
+        batch = make_batch(dcfg, i, mesh)
+        if i == 0:
+            jitted(params, opt_state, batch)  # every leaf placed by its spec
+        profiled = i == TRAIN_STEPS - 1
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with profile(activities=acts) if profiled else contextlib.nullcontext() as prof:
+            t1 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t1) * 1e3
+        row = {"step": i + 1, "loss": loss, "grad_norm": gnorm, "host_ms": host_ms}
+        if prof is not None:
+            dev = [
+                e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            ]
+            nccl = [e for e in dev if "nccl" in e.key.lower()]
+            row["device_ms"] = sum(e.self_device_time_total for e in dev) / 1e3
+            row["nccl_kernels"] = sum(e.count for e in nccl)
+            row["nccl_ms"] = sum(e.self_device_time_total for e in nccl) / 1e3
+            row["kernels"] = sum(e.count for e in dev)
+            kinds: dict = {}
+            for e in dev:
+                kind = "nccl" if e in nccl else _kernel_kind(e.key)
+                k = kinds.setdefault(kind, [0, 0.0])
+                k[0] += e.count
+                k[1] += e.self_device_time_total / 1e3
+            row["device_by_kind"] = {
+                k: {"kernels": n, "ms": ms} for k, (n, ms) in kinds.items()
+            }
+            top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+            row["top_device_ms"] = [
+                [e.key[:90], e.count, e.self_device_time_total / 1e3] for e in top
+            ]
+            busy = row["device_ms"] > 0
+            check(busy, "placement: the profiled step shows no device time")
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"placement step: {row}")
+        rows.append(row)
+        log(f"placement step: {json.dumps(row)}")
+    losses = [r["loss"] for r in rows]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    what = f"placement losses {losses} vs train {train['losses']}"
+    check(max(errs) <= BF16_TOL, what)
+    stats = {
+        "init_s": init_s,
+        "resident_bytes": resident,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "step_ms_median": statistics.median(r["host_ms"] for r in rows[1:-1]),
+        "one_device_step_ms_median": train["step_ms_median"],
+        "nccl_kernels_a_step": rows[-1]["nccl_kernels"],
+        "nccl_ms_a_step": rows[-1]["nccl_ms"],
+        "kernels_a_step": rows[-1]["kernels"],
+        "device_ms": rows[-1]["device_ms"],
+        "one_device_device_ms": train["device_ms"],
+        "losses": losses,
+        "max_rel_loss_err": max(errs),
+        "losses_bit_equal": losses == train["losses"],
+    }
+    del params, opt_state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def placement_smoke(torch, mesh) -> dict:
+    """At smoke size on ``mesh``: a checkpoint of the sharded state saved
+    and restored onto the mesh (bit-equal, leaf for leaf), and one int8
+    ``make_dp_train_step`` step from the restored state, whose loss is the
+    sharded step's on the same state and batch."""
+    import shutil
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.distributed.sharding import params_shardings
+    from repro_torch.models.model import init_params
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_dp_error_state,
+        init_sharded,
+        make_dp_train_step,
+        make_train_step,
+        opt_shardings,
+    )
+
+    cfg = get(TRAIN_ARCH).smoke
+    params, opt_state = init_sharded(cfg, mesh, seed=SEED)
+    batch = make_batch(DataConfig(vocab=cfg.vocab, batch=2, seq=16, seed=SEED), 0, mesh)
+    shutil.rmtree(PLACEMENT_CKPT_DIR, ignore_errors=True)
+    ckpt.save(PLACEMENT_CKPT_DIR, 1, {"params": params, "opt": opt_state})
+    shapes = init_params(cfg, device="meta")
+    like = {"params": shapes, "opt": init_opt_state(shapes)}
+    shardings = {
+        "params": params_shardings(shapes, mesh),
+        "opt": opt_shardings(shapes, mesh),
+    }
+    state = ckpt.restore(PLACEMENT_CKPT_DIR, 1, like, shardings)
+    shutil.rmtree(PLACEMENT_CKPT_DIR)
+    saved = dict(_leaf_items({"params": params, "opt": opt_state}))
+    for name, t in _leaf_items(state):
+        check(isinstance(t, DTensor), f"placement checkpoint: {name} restored unplaced")
+        same = torch.equal(t.to_local(), saved[name].to_local())
+        check(same, f"placement checkpoint: {name} differs after the round trip")
+    opt = OptConfig(**TRAIN_OPT)
+    step, _ = make_train_step(cfg, mesh, TrainConfig(opt=opt))
+    sharded_loss = float(step(params, opt_state, batch)[2]["loss"])
+    int8 = CompressionConfig(kind="int8", block=64)
+    dp = make_dp_train_step(cfg, mesh, TrainConfig(opt=opt, compression=int8))
+    err = init_dp_error_state(state["params"])
+    _, _, err, m = dp(state["params"], state["opt"], err, batch)
+    dp_loss = float(m["loss"])
+    check(math.isfinite(dp_loss), f"placement: int8 DP step loss {dp_loss}")
+    check(any(bool(e.any()) for _, e in _leaf_items(err)), "int8 DP: no residual")
+    err_rel = abs(dp_loss - sharded_loss) / abs(sharded_loss)
+    check(err_rel <= BF16_TOL, f"placement: DP loss {dp_loss} vs {sharded_loss}")
+    return {
+        "checkpoint_leaves_bit_equal": len(saved),
+        "dp_int8_loss": dp_loss,
+        "sharded_loss": sharded_loss,
+        "dp_loss_bit_equal": dp_loss == sharded_loss,
+    }
+
+
+def placement_phase(torch, K, train: dict) -> dict:
+    """The sharded step, the DP step and the sharded checkpoints through a
+    one-rank NCCL group (``launch.mesh.init_distributed``, as ``torchrun
+    --nproc-per-node 1`` starts it) and ``make_host_mesh()`` over it: the
+    code that runs on several cards, at one.  No partitioned-GEMM kernel
+    is launched."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 1 << 30, "the train phase was not freed")
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(env)
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        dev = init_distributed("cuda")
+        mesh = make_host_mesh(device="cuda")
+        group_s = time.perf_counter() - t0
+        check(mesh.device_mesh is not None, "placement: the mesh has no DeviceMesh")
+        log(
+            f"placement: {dist.get_backend()} group of {dist.get_world_size()} on "
+            f"{dev}, mesh {mesh.axis_sizes}, up in {group_s:.2f} s"
+        )
+        stats = placement_train(torch, mesh, train)
+        stats.update(placement_smoke(torch, mesh))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the placement phase launched: {launches}")
+    stats["group_s"] = group_s
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"placement: {json.dumps(stats)}; {launches}")
+    phase_s = stats["phase_s"]
+    check(phase_s <= PLACEMENT_PHASE_S, f"placement took {phase_s:.1f} s")
     return stats
 
 
@@ -2614,7 +2844,8 @@ def main() -> int:
     serving_phase(torch)
     families_phase(torch, K)
     dense_phase(torch, K)
-    train_phase(torch, K)
+    train = train_phase(torch, K)
+    placement_phase(torch, K, train)
     paper_phase(K)
     serve_phase()
     mesh_phase(torch, K)

@@ -24,6 +24,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch._tree import tree_map
+from repro_torch.distributed.collectives import all_gather, all_reduce_, all_to_all_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +42,7 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over the replicas of ``group``."""
     if group is None:
         return x
-    out = x.clone()
-    dist.all_reduce(out, group=group)
-    return out / dist.get_world_size(group)
+    return all_reduce_(x.clone(), group) / dist.get_world_size(group)
 
 
 # ---------------------------------------------------------------------------
@@ -85,8 +84,8 @@ def int8_psum_mean(g: torch.Tensor, group=None, block: int = 256) -> torch.Tenso
     scale = scale.reshape(R, nb, 1)
     if group is not None:  # replica r receives chunk r from everyone
         q_rs, s_rs = torch.empty_like(q), torch.empty_like(scale)
-        dist.all_to_all_single(q_rs, q, group=group)
-        dist.all_to_all_single(s_rs, scale, group=group)
+        all_to_all_(q_rs, q, group)
+        all_to_all_(s_rs, scale, group)
         q, scale = q_rs, s_rs
     local = torch.mean(q.float() * scale, dim=0)  # (nb, block)
     q2, s2 = quantize_int8(local, block)
@@ -94,10 +93,7 @@ def int8_psum_mean(g: torch.Tensor, group=None, block: int = 256) -> torch.Tenso
     if group is None:
         qg, sg = q2[None], s2[None]
     else:
-        qg = q2.new_empty((R * nb, block))
-        sg = s2.new_empty((R * nb, 1))
-        dist.all_gather_into_tensor(qg, q2, group=group)
-        dist.all_gather_into_tensor(sg, s2, group=group)
+        qg, sg = all_gather(q2, 0, group), all_gather(s2, 0, group)
     out = (qg.float() * sg).reshape(-1)[:size]
     return out.reshape(g.shape)
 

@@ -13,9 +13,16 @@ Counterpart of ``repro.distributed.sharding`` (MaxText-style FSDP + TP):
 A spec is a tuple with one entry per tensor dim: a mesh-axis name, a tuple
 of names, or ``None``, entry for entry the JAX ``PartitionSpec`` in its
 normal form (``_pspec``).  A
-:class:`NamedSharding` places a tensor by its spec.  On a one-device mesh
-that is ``.to(device)``; placement across several cards is not built yet,
-and raises.
+:class:`NamedSharding` places a tensor by its spec.  On a mesh that a
+process group backs (``launch.mesh``), that is DTensor's
+``distribute_tensor``: each rank keeps the slice that JAX's
+``NamedSharding.devices_indices_map`` gives the device at its place in
+the mesh.  On one device without a group it is ``.to(device)``.
+
+For use, a sharded leaf is gathered whole (``distributed.collectives``):
+:func:`gather_plan` says over which axes' groups, and :func:`lend_params`
+gives the model a tree of local shards that it gathers as it reads them,
+one layer at a time for the stacked blocks (:class:`ShardedStack`).
 
 Batches shard their dim 0 over ("pod", "data"); decode caches shard the
 batch over the data axes and the KV sequence over "model".
@@ -28,8 +35,10 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch._tree import map_with_path, tree_map
+from repro_torch.distributed.collectives import GatherPlan, gather
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import ModelConfig
 
@@ -124,6 +133,13 @@ REPLICATED = MeshRules(
 )
 
 
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names, major to minor."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class NamedSharding:
     """A spec on a mesh; ``place(t)`` puts ``t`` where the spec says."""
@@ -131,33 +147,82 @@ class NamedSharding:
     mesh: Mesh
     spec: tuple
 
+    def _entry(self, i: int):
+        return self.spec[i] if i < len(self.spec) else None
+
+    @property
+    def placements(self) -> tuple:
+        """DTensor's placements, one per mesh axis: ``Shard(dim)`` for the
+        tensor dim whose entry names the axis, else ``Replicate()``.  A dim
+        that names several axes is split over them major to minor, as in
+        JAX; DTensor splits in mesh order, so the names must come in it."""
+        order = self.mesh.axis_names
+        on: dict[str, int] = {}
+        for i, entry in enumerate(self.spec):
+            names = spec_axes(entry)
+            if list(names) != sorted(names, key=order.index):
+                raise ValueError(f"spec entry {entry} is not in mesh order {order}")
+            on.update((a, i) for a in names)
+        return tuple(Shard(on[a]) if a in on else Replicate() for a in order)
+
     def place(self, t: torch.Tensor) -> torch.Tensor:
-        if self.mesh.size != 1:
-            raise NotImplementedError(
-                "placement across several devices is not built yet"
-            )
-        return t.to(self.mesh.devices.flat[0])
+        """``t`` (whole) placed by the spec: a DTensor of this rank's shard
+        where a process group backs the mesh, else ``t`` on the mesh's one
+        device.  A DTensor already placed so is returned as it is."""
+        dm = self.mesh.device_mesh
+        if dm is None:
+            if self.mesh.size != 1:
+                raise NotImplementedError(
+                    "a mesh of placeholder devices places nothing: build the "
+                    "mesh while a process group is up (launch.mesh)"
+                )
+            return t.to(self.mesh.devices.flat[0])
+        if isinstance(t, DTensor):
+            if t.device_mesh is not dm or tuple(t.placements) != self.placements:
+                raise ValueError(f"a DTensor placed {t.placements}, not {self.spec}")
+            return t
+        # every rank holds the whole of ``t``: keep the slice, send nothing
+        return distribute_tensor(t, dm, self.placements, src_data_rank=None)
 
     def shard_shape(self, shape) -> tuple[int, ...]:
         """The shape each device holds of a ``shape`` tensor: every dim
         divided by the product of the mesh axes its spec entry names (as
         ``jax.sharding.NamedSharding.shard_shape``; raises where a dim does
         not divide)."""
-        sizes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        sizes = self.mesh.axis_sizes
         out = []
         for i, dim in enumerate(shape):
-            entry = self.spec[i] if i < len(self.spec) else None
-            if entry is None:
-                names = ()
-            else:
-                names = entry if isinstance(entry, tuple) else (entry,)
-            parts = int(np.prod([sizes[a] for a in names]))
+            parts = int(np.prod([sizes[a] for a in spec_axes(self._entry(i))]))
             if dim % parts:
                 raise ValueError(
                     f"dim {i} of {tuple(shape)} does not split {parts} ways"
                 )
             out.append(dim // parts)
         return tuple(out)
+
+    def local_slices(self, shape, coord) -> tuple[slice, ...]:
+        """The slice of a ``shape`` tensor that the device at mesh place
+        ``coord`` holds (``devices_indices_map``'s entry for it)."""
+        sizes = self.mesh.axis_sizes
+        at = dict(zip(self.mesh.axis_names, coord))
+        out = []
+        for i, size in enumerate(self.shard_shape(shape)):
+            k = 0
+            for a in spec_axes(self._entry(i)):
+                k = k * sizes[a] + at[a]
+            out.append(slice(k * size, (k + 1) * size))
+        return tuple(out)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``t``: a DTensor's local tensor (the same
+        storage), or the slice of a whole tensor."""
+        if isinstance(t, DTensor):
+            with torch.no_grad():
+                return t.to_local()
+        dm = self.mesh.device_mesh
+        if dm is None:
+            return t
+        return t[self.local_slices(t.shape, dm.get_coordinate())]
 
 
 def _pspec(*entries) -> tuple:
@@ -231,6 +296,68 @@ def params_shardings(params_tree, mesh: Mesh, rules: MeshRules = FSDP_TP):
 def place(tree, shardings):
     """Each leaf of ``tree`` placed by its sharding."""
     return tree_map(lambda t, sh: sh.place(t), tree, shardings)
+
+
+def locals_of(tree, shardings):
+    """Each leaf's local shard (``NamedSharding.local``)."""
+    return tree_map(lambda t, sh: sh.local(t), tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# lending sharded params to the model
+# ---------------------------------------------------------------------------
+
+
+def gather_plan(sh: NamedSharding, skip: int = 0) -> GatherPlan:
+    """How a leaf placed by ``sh`` is gathered whole for use and its
+    gradient reduced back (``collectives.GatherPlan``); ``skip`` drops that
+    many leading dims of the spec (1 for a layer of a stacked leaf, whose
+    layer dim no rule shards)."""
+    mesh = sh.mesh
+    sizes = mesh.axis_sizes
+    entries = [sh._entry(i) for i in range(len(sh.spec))]
+    if any(spec_axes(e) for e in entries[:skip]):
+        raise ValueError(f"the leading dims of {sh.spec} are sharded")
+    steps, named = [], set()
+    for i, entry in enumerate(entries[skip:]):
+        for a in reversed(spec_axes(entry)):  # the minor axis first
+            steps.append((i, mesh.group(a)))
+            named.add(a)
+    data = batch_axes(mesh)
+    replicas = int(np.prod([sizes[a] for a in data]))
+    copies = int(np.prod([sizes[a] for a in named if a not in data]))
+    return GatherPlan(
+        gather=tuple(steps),
+        reduce=tuple(mesh.group(a) for a in data if a not in named),
+        scale=1.0 / (replicas * copies),
+    )
+
+
+class ShardedStack(dict):
+    """A stacked-layer subtree of local shards.  ``models.model`` reads a
+    layer through ``gather_layer``, which gathers that layer's leaves
+    whole (inside the layer's rematerialised body: the backward gathers
+    again instead of keeping them)."""
+
+    def __init__(self, local: dict, shardings: dict):
+        super().__init__(local)
+        self.plans = tree_map(lambda sh: gather_plan(sh, skip=1), shardings)
+
+    def gather_layer(self, layer: dict) -> dict:
+        return tree_map(gather, layer, self.plans)
+
+
+def lend_params(local, shardings) -> dict:
+    """The params tree the model reads, from local shards: each stacked
+    subtree a :class:`ShardedStack`, every other leaf gathered whole now
+    (once a forward pass)."""
+    out = {}
+    for k, v in local.items():
+        if k.startswith(_STACKED_PREFIXES):
+            out[k] = ShardedStack(v, shardings[k])
+        else:
+            out[k] = tree_map(lambda t, sh: gather(t, gather_plan(sh)), v, shardings[k])
+    return out
 
 
 # ---------------------------------------------------------------------------

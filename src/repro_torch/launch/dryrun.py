@@ -16,10 +16,19 @@ keeps the JAX package's keys:
   that XLA replicates (a dim no mesh axis divides) counts once here;
 * ``arg_bytes``, ``out_bytes`` — what one device holds of the step's
   arguments and outputs, from each leaf's spec on the mesh;
+* ``collectives`` ({kind: [count, bytes]} under XLA's names),
+  ``collective_bytes`` (their sum) and ``temp_bytes`` (the peak of live
+  bytes beyond the arguments) — from a second run of the step as rank 0
+  of the mesh runs it, in a fake process group of the mesh's size
+  (``launch.steps.Lowerable.partition``).  The port partitions otherwise
+  than GSPMD (each layer gathered whole, no tensor-parallel compute, the
+  decode cache split over the batch only), so these are the port's
+  numbers, not XLA's; a train cell whose batch shard is smaller than the
+  microbatch count accumulates over as many microbatches as the shard
+  allows;
 * ``bytes_per_device``, ``flops_xla_raw``, ``bytes_xla_raw``,
-  ``transcendentals``, ``temp_bytes``, ``collective_bytes``,
-  ``collectives`` — only a compiler can give these: ``null``, never an
-  estimate.
+  ``transcendentals`` — only a compiler can give these: ``null``, never
+  an estimate.
 
 Usage::
 
@@ -53,9 +62,6 @@ XLA_ONLY = (
     "flops_xla_raw",
     "bytes_xla_raw",
     "transcendentals",
-    "temp_bytes",
-    "collective_bytes",
-    "collectives",
 )
 
 
@@ -127,6 +133,7 @@ def main(argv=None) -> int:
                         spec, cell_name, mesh, train=TrainConfig(microbatches=mb)
                     )
                     lowered = low.lower()
+                    part = low.partition()
                     rec = {
                         "arch": arch_id,
                         "cell": cell_name,
@@ -137,6 +144,9 @@ def main(argv=None) -> int:
                         "flops_per_device": lowered.flops / mesh.size,
                         "arg_bytes": lowered.arg_bytes,
                         "out_bytes": lowered.out_bytes,
+                        "temp_bytes": part.temp_bytes,
+                        "collective_bytes": part.collective_bytes,
+                        "collectives": part.collectives,
                         **dict.fromkeys(XLA_ONLY),
                     }
                     n_ok += 1
@@ -145,7 +155,9 @@ def main(argv=None) -> int:
                             f"OK   {key:55s} {rec['compile_s']:6.1f}s "
                             f"flops={rec['flops_per_device']:.3g} "
                             f"args={rec['arg_bytes'] / 1e9:.2f}GB "
-                            f"out={rec['out_bytes'] / 1e9:.2f}GB",
+                            f"out={rec['out_bytes'] / 1e9:.2f}GB "
+                            f"temp={rec['temp_bytes'] / 1e9:.2f}GB "
+                            f"coll={rec['collective_bytes'] / 1e9:.2f}GB",
                             flush=True,
                         )
                 except Exception as e:  # noqa: BLE001 — record and continue

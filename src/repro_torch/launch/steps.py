@@ -17,30 +17,51 @@ rules, and ``lower()`` reads from them the bytes each device holds.
 ``jax.jit``'s ``donate_argnums`` has no counterpart: AdamW
 (``training.optimizer.adamw_update``) and ``decode_step`` already update
 the params, the optimizer state and the cache in place.
+
+``Lowerable.partition()`` runs the cell's step once more as rank 0 of the
+mesh runs it, on meta shards, in a fake process group of the mesh's size
+(``torch.testing._internal.distributed.fake_pg``: every collective
+returns at once), the port's counterpart of XLA's partitioned module: it
+counts the port's collectives and the rank's peak of live bytes beyond
+its arguments (``torch.distributed._tools.mem_tracker.MemTracker``).  The
+port partitions otherwise than GSPMD — each layer's leaves gathered whole
+(FSDP), no tensor-parallel compute, a decode cache split over the batch
+only — so its counts are its own, not XLA's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch._tree import tree_map
 from repro_torch.configs.base import ArchSpec, input_specs, params_spec
+from repro_torch.distributed.collectives import count_collectives
 from repro_torch.distributed.sharding import (
     FSDP_TP,
     MeshRules,
     NamedSharding,
     batch_shardings,
     cache_shardings,
+    lend_params,
     params_shardings,
 )
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import decode_step, prefill
 from repro_torch.training.optimizer import adamw_update, init_opt_state
-from repro_torch.training.train_loop import TrainConfig, loss_and_grads, opt_shardings
+from repro_torch.training.train_loop import (
+    TrainConfig,
+    loss_and_grads,
+    opt_shardings,
+    sharded_step_fn,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +83,27 @@ class Lowered:
 
 
 @dataclasses.dataclass(frozen=True)
+class Partitioned:
+    """What rank 0 of the mesh does in one run of a step
+    (``Lowerable.partition``): ``collectives`` {kind: [calls, wire bytes]}
+    under the JAX names, ``temp_bytes`` its peak of live bytes beyond the
+    arguments, ``microbatches`` the accumulation its batch shard allows."""
+
+    collectives: dict[str, list[int]]
+    temp_bytes: int
+    microbatches: int
+
+    @property
+    def collective_bytes(self) -> int:
+        return sum(b for _, b in self.collectives.values())
+
+
+@dataclasses.dataclass(frozen=True)
 class Lowerable:
     """A step, its meta arguments, and the cell's shardings of both
     (``out_shardings`` is None where the JAX package leaves the outputs'
-    to the compiler)."""
+    to the compiler); ``sharded(mesh)`` gives the step as one rank of
+    ``mesh`` runs it and that rank's meta arguments."""
 
     step: Callable
     args: tuple
@@ -74,6 +112,22 @@ class Lowerable:
     kind: str
     arch_id: str
     cell_name: str
+    mesh: Mesh = None
+    sharded: Callable = None
+
+    def partition(self) -> Partitioned:
+        """Run the step as rank 0 of the mesh runs it (see the module's
+        docstring); on one device, the step itself."""
+        from torch.distributed._tools.mem_tracker import MemTracker
+
+        with _fake_group(self.mesh) as mesh:
+            fn, args, micro = self.sharded(mesh)
+            tracker = MemTracker()
+            with torch.no_grad(), count_collectives() as log, tracker:
+                fn(*args)
+            peak = tracker.get_tracker_snapshot("peak")
+        temp = sum(per_dev["Total"] for per_dev in peak.values())
+        return Partitioned(dict(sorted(log.items())), int(temp), micro)
 
     def lower(self) -> Lowered:
         with torch.no_grad(), FlopCounterMode(display=False) as counter:
@@ -104,6 +158,41 @@ def device_bytes(tree, shardings) -> int:
     return math.prod(shape) * tree.element_size()
 
 
+@contextlib.contextmanager
+def _fake_group(mesh: Mesh):
+    """``mesh`` backed by a DeviceMesh over a fake process group of its
+    size, this process rank 0; a one-device mesh as it is."""
+    if mesh.size == 1:
+        yield mesh
+        return
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up: the dry run needs its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        dm = init_device_mesh("cpu", mesh.devices.shape, mesh_dim_names=mesh.axis_names)
+        yield dataclasses.replace(mesh, device_mesh=dm)
+    finally:
+        dist.destroy_process_group()
+
+
+def _meta_shards(tree, shardings):
+    """Rank 0's shard of every meta leaf of ``tree``, on the meta device."""
+    if isinstance(tree, dict):
+        return {k: _meta_shards(v, shardings[k]) for k, v in tree.items()}
+    shape = shardings.shard_shape(tree.shape)
+    return torch.empty(shape, dtype=tree.dtype, device="meta")
+
+
+def _batch_only(sh: NamedSharding) -> NamedSharding:
+    """A cache sharding with its split of the sequence over "model" taken
+    out: the port's decode reads a cache split over the batch only."""
+    spec = tuple(e if i == 1 else None for i, e in enumerate(sh.spec))
+    return NamedSharding(sh.mesh, spec)
+
+
 def build_lowerable(
     spec: ArchSpec,
     cell_name: str,
@@ -123,6 +212,9 @@ def build_lowerable(
         specs = input_specs(cfg, cell)
     p_sds = params_spec(cfg)
     p_sh = params_shardings(p_sds, mesh, rules)
+    lowerable = functools.partial(
+        Lowerable, arch_id=spec.arch_id, cell_name=cell_name, mesh=mesh
+    )
 
     if cell.kind == "train":
         batch_sds = specs
@@ -135,14 +227,27 @@ def build_lowerable(
             new_p, new_o = adamw_update(train.opt, params, grads, opt_state)
             return new_p, new_o, loss
 
-        return Lowerable(
+        def sharded(m: Mesh):
+            if m.device_mesh is None:
+                return step, (p_sds, o_sds, batch_sds), train.microbatches
+            psh = params_shardings(p_sds, m, rules)
+            local_b = _meta_shards(batch_sds, batch_shardings(batch_sds, m))
+            rows = local_b["tokens"].shape[0]
+            micro = math.gcd(rows, train.microbatches)
+            fn = sharded_step_fn(
+                cfg, m, dataclasses.replace(train, microbatches=micro), psh
+            )
+            local_p = _meta_shards(p_sds, psh)
+            local_o = _meta_shards(o_sds, opt_shardings(p_sds, m, rules))
+            return fn, (local_p, local_o, local_b), micro
+
+        return lowerable(
             step,
             (p_sds, o_sds, batch_sds),
             (p_sh, o_sh, b_sh),
             (p_sh, o_sh, NamedSharding(mesh, ())),
             "train",
-            spec.arch_id,
-            cell_name,
+            sharded=sharded,
         )
 
     if cell.kind == "prefill":
@@ -158,34 +263,54 @@ def build_lowerable(
                 patches=batch.get("patches"),
             )
 
-        return Lowerable(
+        def sharded(m: Mesh):
+            if m.device_mesh is None:
+                return step, (p_sds, batch_sds), 1
+            psh = params_shardings(p_sds, m, rules)
+            local_p = _meta_shards(p_sds, psh)
+            local_b = _meta_shards(batch_sds, batch_shardings(batch_sds, m))
+            return (lambda p, b: step(lend_params(p, psh), b)), (local_p, local_b), 1
+
+        return lowerable(
             step,
             (p_sds, batch_sds),
             (p_sh, b_sh),
             None,
             "prefill",
-            spec.arch_id,
-            cell_name,
+            sharded=sharded,
         )
 
     if cell.kind == "decode":
         cache_sds = specs["cache"]
         c_sh = cache_shardings(cache_sds, mesh)
-        tok_sh = batch_shardings(
-            {"token": specs["token"], "cache_len": specs["cache_len"]}, mesh
-        )
+        tok = {"token": specs["token"], "cache_len": specs["cache_len"]}
+        tok_sh = batch_shardings(tok, mesh)
 
         def step(params, cache, token, cache_len):
             return decode_step(cfg, params, cache, token, cache_len)
 
-        return Lowerable(
+        def sharded(m: Mesh):
+            args = (p_sds, cache_sds, specs["token"], specs["cache_len"])
+            if m.device_mesh is None:
+                return step, args, 1
+            psh = params_shardings(p_sds, m, rules)
+            csh = tree_map(_batch_only, cache_shardings(cache_sds, m))
+            local_t = _meta_shards(tok, batch_shardings(tok, m))
+            local = (
+                _meta_shards(p_sds, psh),
+                _meta_shards(cache_sds, csh),
+                local_t["token"],
+                local_t["cache_len"],
+            )
+            return (lambda p, *rest: step(lend_params(p, psh), *rest)), local, 1
+
+        return lowerable(
             step,
             (p_sds, cache_sds, specs["token"], specs["cache_len"]),
             (p_sh, c_sh, tok_sh["token"], tok_sh["cache_len"]),
             (None, c_sh),
             "decode",
-            spec.arch_id,
-            cell_name,
+            sharded=sharded,
         )
 
     raise ValueError(cell.kind)

@@ -10,16 +10,28 @@ card (or the CPU with ``--device cpu``)::
 Kill the process at any step and run the same command again: it resumes
 from the latest committed checkpoint and regenerates the exact data stream
 from (seed, step).
+
+Under ``torchrun`` it trains over every rank through the sharded step
+(``make_host_mesh()`` over the world: data = ranks, model = 1), NCCL with
+one card a rank, or gloo with ``--device cpu``; only rank 0 prints (on
+the cards, its peak memory last)::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \\
+        --device cpu --steps 3 --batch 4 --seq 16
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get, list_archs
 from repro_torch.distributed.sharding import params_shardings
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
 from repro_torch.models.model import init_params
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, make_batch
@@ -48,10 +60,26 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
+    if "WORLD_SIZE" not in os.environ:  # one process
+        return _train(args, print)
+    dev = init_distributed(args.device)
+    try:
+        quiet = dist.get_rank() != 0
+        rc = _train(args, (lambda *a, **k: None) if quiet else print)
+        if dev.type == "cuda" and not quiet:
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            print(f"rank 0 of {dist.get_world_size()}: peak {peak:.2f} GB")
+        return rc
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, say) -> int:
+    """The run; ``say`` prints (a no-op on every rank but 0)."""
     spec = get(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
     mesh = make_host_mesh(device=args.device)
-    print(
+    say(
         f"arch={args.arch} family={cfg.family} mesh={mesh.devices.shape} "
         f"{mesh.axis_names}"
     )
@@ -78,7 +106,7 @@ def main(argv=None) -> int:
         state = ckpt.restore(args.ckpt_dir, got, like, shardings)
         params, opt_state = state["params"], state["opt"]
         start = got
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
 
     dcfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=args.seed)
     extras = {}
@@ -96,7 +124,7 @@ def main(argv=None) -> int:
         params, opt_state, m = step_fn(params, opt_state, batch)
         if (step + 1) % args.log_every == 0:
             dt = (time.time() - t0) / args.log_every
-            print(
+            say(
                 f"step {step + 1:5d}  loss {float(m['loss']):7.4f}  "
                 f"gnorm {float(m['grad_norm']):8.3f}  {dt * 1e3:6.1f} ms/it",
                 flush=True,
@@ -104,8 +132,8 @@ def main(argv=None) -> int:
             t0 = time.time()
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             d = ckpt.save(args.ckpt_dir, step + 1, {"params": params, "opt": opt_state})
-            print(f"checkpointed -> {d}", flush=True)
-    print("done")
+            say(f"checkpointed -> {d}", flush=True)
+    say("done")
     return 0
 
 

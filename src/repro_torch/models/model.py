@@ -145,6 +145,13 @@ def _layer(tree: Params, i: int) -> Params:
     return tree[i]
 
 
+def _block(blocks: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked subtree, gathered whole where the subtree
+    is a stack of local shards (``distributed.sharding.ShardedStack``)."""
+    gather = getattr(blocks, "gather_layer", None)
+    return _layer(blocks, i) if gather is None else gather(_layer(blocks, i))
+
+
 def _unstack(tree: Params, n: int) -> list[Params]:
     """The ``n`` layers of a tree stacked on a leading layer axis, each leaf
     unbound once (views)."""
@@ -302,8 +309,17 @@ def _scan_blocks(
     cfg: ModelConfig, blocks: Params, x: torch.Tensor, body
 ) -> torch.Tensor:
     """``body(layer_params, h)`` over the stacked layers in order, each layer
-    rematerialised in the backward pass when ``cfg.remat`` is set."""
+    rematerialised in the backward pass when ``cfg.remat`` is set.  A
+    stack of local shards (``distributed.sharding.ShardedStack``) has each
+    layer gathered whole inside its body."""
     n = leaves(blocks)[0].shape[0]
+    gather = getattr(blocks, "gather_layer", None)
+    if gather is not None:  # a sharded stack: each layer gathered in its body
+        inner = body
+
+        def body(bp, h):
+            return inner(gather(bp), h)
+
     for bp in _unstack(blocks, n):
         x = L.remat(body, bp, x) if cfg.remat else body(bp, x)
     return x
@@ -568,7 +584,7 @@ def decode_step(
     x = params["embed"][token].to(torch.bfloat16)  # (B, 1, d)
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
+            bp = _block(params["blocks"], i)
             z = _norm(cfg, bp["attn_norm"], x)
             kc, vc = cache["k"][i], cache["v"][i]
             x = x + _decode_attn(bp["attn"], cfg.attn_cfg, z, kc, vc, cache_len, live)
@@ -580,7 +596,7 @@ def decode_step(
                 x = x + L.mlp(bp["mlp"], z, cfg.mlp_kind)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
+            bp = _block(params["blocks"], i)
             c = _layer(cache, i)
             y, c2 = ssd_step(bp["ssd"], cfg.ssm_cfg, c, _norm(cfg, bp["norm"], x)[:, 0])
             for key in c:
@@ -617,7 +633,7 @@ def _hybrid_decode(cfg, params, cache, x, cache_len, live):
     n_super, rem = divmod(cfg.n_layers, len(cfg.pattern))
     ai = ri = 0
     for s in range(n_super):
-        bp = _layer(params["blocks"], s)
+        bp = _block(params["blocks"], s)
         for i, kind in enumerate(cfg.pattern):
             x = _hybrid_sub_decode(
                 cfg, bp[f"sub{i}"], kind, x, cache, ai, ri, cache_len, live
@@ -637,7 +653,7 @@ def _encdec_decode(cfg, params, cache, x, cache_len, live):
     x_cfg = dataclasses.replace(a_cfg, causal=False)
     enc_len = torch.full_like(cache_len, cfg.enc_seq - 1)
     for i in range(cfg.n_layers):
-        bp = _layer(params["dec_blocks"], i)
+        bp = _block(params["dec_blocks"], i)
         z = _norm(cfg, bp["attn_norm"], x)
         kc, vc = cache["k"][i], cache["v"][i]
         x = x + _decode_attn(bp["attn"], a_cfg, z, kc, vc, cache_len, live)

@@ -12,6 +12,12 @@ Writers stage into ``.tmp`` and ``os.replace`` it to the final name only
 after everything (manifest last) is flushed: a reader never sees a
 half-written checkpoint, and ``latest_step`` ignores ``.tmp`` leftovers.
 
+A tree of DTensors (a state sharded over a process group's ranks) is
+saved by every rank together: each leaf is gathered whole, rank 0 writes
+the same files as for one device, and the other ranks wait at a barrier.
+``restore`` places each leaf by the shardings it is given, on a mesh of
+any shape: elastic, as in the JAX package.
+
 npz cannot store bf16: a bf16 leaf is stored as its ``uint16`` bits and
 the manifest records ``"bfloat16"``.  The tree signature hashes each key
 with ``str(shape)`` as NumPy prints a shape tuple and the dtype's NumPy
@@ -28,8 +34,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch._tree import leaves_with_path, map_with_path
+from repro_torch._tree import leaves, leaves_with_path, map_with_path
 
 _SEP = "/"
 
@@ -44,6 +52,8 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -70,8 +80,16 @@ def _tree_signature(flat: dict[str, tuple[tuple[int, ...], str]]) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None) -> str:
-    """Write a checkpoint atomically; returns the committed directory."""
+    """Write a checkpoint atomically; returns the committed directory.  A
+    tree of DTensors is saved by all its ranks together (rank 0 writes)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    sharded = any(isinstance(t, DTensor) for t in leaves(tree))
+    if sharded and dist.get_rank() != 0:
+        for t in leaves(tree):  # the gathers rank 0 makes
+            if isinstance(t, DTensor):
+                t.full_tensor()
+        dist.barrier()
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -94,6 +112,8 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -124,8 +144,9 @@ def restore(ckpt_dir: str, step: int, like: Any, shardings: Any | None = None) -
     tensors included).
 
     Each leaf goes where its sharding in ``shardings`` (a tree of
-    ``distributed.sharding.NamedSharding``) places it, or else to the
-    device of its ``like`` leaf (the CPU for a meta leaf).
+    ``distributed.sharding.NamedSharding``) places it — on a mesh of any
+    shape, whatever mesh saved it — or else to the device of its ``like``
+    leaf (the CPU for a meta leaf).
     """
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:

@@ -66,7 +66,9 @@ def make_batch(
 ) -> dict[str, torch.Tensor]:
     """Batch for ``step``: {tokens, labels} (int32) and the stub frontend
     inputs named in ``extras`` ({name: shape}), placed on ``mesh`` by
-    ``batch_shardings``, or else on ``device``."""
+    ``batch_shardings``, or else on ``device``.  On a mesh that a process
+    group backs, every rank draws the same global batch and keeps its
+    shard (DTensors): the shards joined are the one-device batch."""
     dev = resolve_device(device) if mesh is None else None
     host = _host_batch(cfg, step)
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()}

@@ -85,14 +85,22 @@ def _decay_mask(path) -> bool:
 
 @torch.no_grad()
 def adamw_update(
-    cfg: OptConfig, params: Any, grads: Any, state: dict[str, Any]
+    cfg: OptConfig,
+    params: Any,
+    grads: Any,
+    state: dict[str, Any],
+    *,
+    grad_norm: torch.Tensor | None = None,
 ) -> tuple[Any, dict[str, Any]]:
     """One AdamW step, in place.  Returns (params, state) — the same trees,
     updated — so ``params, state = adamw_update(...)`` reads as in the JAX
-    package.  ``grads`` is not written."""
+    package.  ``grads`` is not written.  Every leaf may be a rank's local
+    shard (the update is elementwise); ``grad_norm`` is then the norm of
+    the whole gradient, which the shards alone cannot give (default:
+    ``global_norm(grads)``)."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()

@@ -1,4 +1,4 @@
-"""Train-step factories: the single-program step and the explicit DP step.
+"""Train-step factories: the sharded step and the explicit DP step.
 
 Counterpart of ``repro.training.train_loop``.  Two step factories, one
 contract — ``step(params, opt_state, batch) -> (params, opt_state,
@@ -6,22 +6,35 @@ metrics)``:
 
 * :func:`make_train_step` — loss and gradients by autograd (microbatch
   gradients accumulated in f32), then AdamW in place.  The JAX package
-  ``jax.jit``s it with the mesh's shardings; here the step runs eagerly,
-  on the mesh's one device;
-* :func:`make_dp_train_step` — explicit data parallelism over a
-  ``torch.distributed`` process group (``None``: one replica), with
-  gradient compression (int8 / top-k with error feedback) on the
-  cross-replica mean.  Params are replicated in this path.
+  ``jax.jit``s it with the mesh's shardings and GSPMD partitions it; here
+  the step runs eagerly and partitions itself.  On a mesh that a process
+  group backs, params and optimizer state are DTensors placed by their
+  specs, each rank holding its shards: the model gathers a layer's
+  leaves whole just before it runs that layer, each rank computes on its
+  shard of the batch, and each gradient is reduce-scattered back to its
+  leaf's shard, averaged over the data axes
+  (``distributed.collectives.gather``).  Tensor-parallel compute is not
+  built: ranks along "model" compute the same batch shard.  On one device
+  without a group the step is the plain one;
+* :func:`make_dp_train_step` — explicit data parallelism over the data
+  axes of the mesh, with gradient compression (int8 / top-k with error
+  feedback) on the cross-replica mean, level by level: over "data", then
+  over "pod", each level with its own compression.  Params are
+  replicated in this path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch._tree import leaves, tree_map
+from repro_torch.distributed.collectives import all_reduce_
 from repro_torch.distributed.compression import (
     CompressionConfig,
     compressed_mean,
@@ -32,8 +45,13 @@ from repro_torch.distributed.sharding import (
     FSDP_TP,
     MeshRules,
     NamedSharding,
+    batch_axes,
+    batch_shardings,
+    lend_params,
+    locals_of,
     params_shardings,
     place,
+    spec_axes,
 )
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import ModelConfig, init_params, loss_fn
@@ -69,13 +87,15 @@ def _split_micro(batch: Any, n: int) -> Any:
 
 
 def _value_and_grad(
-    cfg: ModelConfig, params: Any, batch: Any
+    cfg: ModelConfig, params: Any, batch: Any, lend: Callable | None = None
 ) -> tuple[torch.Tensor, Any]:
     """Loss and its gradient for every leaf of ``params`` (the params are
-    not marked: autograd differentiates detached views of them)."""
+    not marked: autograd differentiates detached views of them).  ``lend``
+    turns the marked leaves into the tree the model reads (the gathers of
+    a sharded step)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = loss_fn(cfg, live, batch)
+        loss = loss_fn(cfg, live if lend is None else lend(live), batch)
         # a leaf the loss does not reach gets a zero gradient, as in JAX
         grads = torch.autograd.grad(
             loss, leaves(live), allow_unused=True, materialize_grads=True
@@ -85,17 +105,23 @@ def _value_and_grad(
 
 
 def loss_and_grads(
-    cfg: ModelConfig, params: Any, batch: Any, microbatches: int = 1
+    cfg: ModelConfig,
+    params: Any,
+    batch: Any,
+    microbatches: int = 1,
+    *,
+    lend: Callable | None = None,
 ) -> tuple[torch.Tensor, Any]:
     """Mean loss + grads; with microbatches, the gradients accumulate in f32
-    buffers and are scaled by 1/microbatches at the end."""
+    buffers and are scaled by 1/microbatches at the end.  ``lend``: as in
+    ``_value_and_grad``, once a microbatch."""
     if microbatches == 1:
-        return _value_and_grad(cfg, params, batch)
+        return _value_and_grad(cfg, params, batch, lend)
     micro = _split_micro(batch, microbatches)
     loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
     acc = tree_map(_f32_zeros, params)
     for i in range(microbatches):
-        lv, g = _value_and_grad(cfg, params, tree_map(lambda x: x[i], micro))
+        lv, g = _value_and_grad(cfg, params, tree_map(lambda x: x[i], micro), lend)
         loss = loss + lv
         tree_map(lambda a, b: a.add_(b), acc, g)
         del g
@@ -104,8 +130,57 @@ def loss_and_grads(
 
 
 # ---------------------------------------------------------------------------
-# the single-program step
+# the sharded step
 # ---------------------------------------------------------------------------
+
+
+def _data_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mean of a per-rank scalar over the mesh's data axes, one axis
+    after the other (the JAX package's DP step: "pod", then "data")."""
+    for ax in batch_axes(mesh):
+        x = pmean(x, mesh.group(ax))
+    return x
+
+
+def sharded_norm(grads: Any, shardings: Any, mesh: Mesh) -> torch.Tensor:
+    """The global norm of a gradient held as local shards: each rank's
+    squares of a leaf over the number of ranks that hold the same shard,
+    summed over every rank, so that each element counts once."""
+    sizes = mesh.axis_sizes
+
+    def part(g, sh):
+        split = math.prod(sizes[a] for e in sh.spec for a in spec_axes(e))
+        return g.float().square().sum() / (mesh.size // split)
+
+    per_leaf = leaves(tree_map(part, grads, shardings))
+    total = torch.sum(torch.stack(per_leaf))
+    return torch.sqrt(all_reduce_(total, dist.group.WORLD))
+
+
+def sharded_step_fn(
+    cfg: ModelConfig, mesh: Mesh, train: TrainConfig, shardings: Any
+) -> Callable:
+    """The sharded step on local shards: ``fn(params, opt_state, batch) ->
+    (loss, grad_norm)``, every argument this rank's local tensors (the
+    batch its shard), params and state updated in place.  The dry run
+    (``launch.steps``) runs it on meta shards."""
+
+    def fn(params, opt_state, batch):
+        lend = lambda live: lend_params(live, shardings)  # noqa: E731
+        loss, grads = loss_and_grads(cfg, params, batch, train.microbatches, lend=lend)
+        loss = _data_mean(loss, mesh)
+        gnorm = sharded_norm(grads, shardings, mesh)
+        adamw_update(train.opt, params, grads, opt_state, grad_norm=gnorm)
+        return loss, gnorm
+
+    return fn
+
+
+def _like(ref, t: torch.Tensor):
+    """``t`` as ``ref`` is held: a DTensor placed as ``ref``, or plain."""
+    if isinstance(ref, DTensor):
+        return DTensor.from_local(t, ref.device_mesh, ref.placements, run_check=False)
+    return t
 
 
 def make_train_step(
@@ -116,31 +191,60 @@ def make_train_step(
 ) -> tuple[Callable, Callable]:
     """(step, jitted): ``step(params, opt_state, batch) -> (params,
     opt_state, metrics)``, updating params and state in place, and
-    ``jitted(params, opt_state, batch)``, which checks that every leaf lies
-    on the mesh's device and returns ``step`` (it runs eagerly: there is no
-    compiled form of it here).  ``rules`` is the JAX signature's; on a
-    one-device mesh every spec places a leaf whole on that device."""
+    ``jitted(params, opt_state, batch)``, which checks that every leaf is
+    placed by its sharding on ``mesh`` and returns ``step`` (it runs
+    eagerly: there is no compiled form of it here).
+
+    On a mesh that a process group backs, params and state are DTensors
+    placed by ``params_shardings`` / ``opt_shardings`` (``init_sharded``,
+    ``checkpoint.restore``) and the batch by ``batch_shardings``
+    (``data.make_batch``; a whole batch is sliced).  On one device every
+    leaf lies whole on it."""
 
     def step(params, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, params, batch, train.microbatches)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
-        params, opt_state = adamw_update(train.opt, params, grads, opt_state)
-        del grads
-        metrics["step"] = opt_state["step"]
+        if mesh.device_mesh is None:
+            loss, grads = loss_and_grads(cfg, params, batch, train.microbatches)
+            metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+            params, opt_state = adamw_update(train.opt, params, grads, opt_state)
+            del grads
+            metrics["step"] = opt_state["step"]
+            return params, opt_state, metrics
+        p_sh = params_shardings(params, mesh, rules)
+        local_o = locals_of(opt_state, opt_shardings(params, mesh, rules))
+        fn = sharded_step_fn(cfg, mesh, train, p_sh)
+        local_b = locals_of(batch, batch_shardings(batch, mesh))
+        loss, gnorm = fn(locals_of(params, p_sh), local_o, local_b)
+        opt_state["step"] = _like(opt_state["step"], local_o["step"])
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": local_o["step"]}
         return params, opt_state, metrics
 
     def jitted(params_tree, opt_tree, batch_tree):
-        home = mesh.devices.flat[0]
-        trees = {"params": params_tree, "opt_state": opt_tree, "batch": batch_tree}
-        for name, tree in trees.items():
-            for t in leaves(tree):
-                if t.device != home:
-                    raise ValueError(
-                        f"{name} leaf on {t.device}, the mesh is on {home}"
-                    )
+        trees = {
+            "params": (params_tree, params_shardings(params_tree, mesh, rules)),
+            "opt_state": (opt_tree, opt_shardings(params_tree, mesh, rules)),
+            "batch": (batch_tree, batch_shardings(batch_tree, mesh)),
+        }
+        for name, (tree, shardings) in trees.items():
+            for t, sh in zip(leaves(tree), leaves(shardings)):
+                _check_placed(name, t, sh)
         return step
 
     return step, jitted
+
+
+def _check_placed(name: str, t, sh: NamedSharding) -> None:
+    dm = sh.mesh.device_mesh
+    if dm is None:
+        home = sh.mesh.devices.flat[0]
+        if t.device != home:
+            raise ValueError(f"{name} leaf on {t.device}, the mesh is on {home}")
+        return
+    placed = isinstance(t, DTensor) and t.device_mesh is dm
+    if not placed or tuple(t.placements) != sh.placements:
+        got = tuple(t.placements) if isinstance(t, DTensor) else "a plain tensor"
+        raise ValueError(
+            f"{name} leaf placed {got}, its spec {sh.spec} asks {sh.placements}"
+        )
 
 
 def opt_shardings(params_tree, mesh: Mesh, rules: MeshRules = FSDP_TP) -> dict:
@@ -153,36 +257,70 @@ def opt_shardings(params_tree, mesh: Mesh, rules: MeshRules = FSDP_TP) -> dict:
 def init_sharded(
     cfg: ModelConfig, mesh: Mesh, seed: int = 0, rules: MeshRules = FSDP_TP
 ) -> tuple[Any, Any]:
-    """Params and optimizer state drawn and placed on ``mesh``."""
-    params = init_params(cfg, seed, device=mesh.devices.flat[0])
+    """Params and optimizer state drawn and placed on ``mesh``: each rank
+    draws the params whole (the same numbers everywhere) and keeps its
+    shards."""
+    params = init_params(cfg, seed, device=mesh.local_device)
     params = place(params, params_shardings(params, mesh, rules))
     opt_state = init_opt_state(params)
     return params, place(opt_state, opt_shardings(params, mesh, rules))
 
 
 # ---------------------------------------------------------------------------
-# explicit DP step with gradient compression
+# explicit DP step with gradient compression (hierarchical reduce)
 # ---------------------------------------------------------------------------
 
 
+def _replicated(name: str, t):
+    """The local tensor of a replicated leaf (a plain tensor is one)."""
+    if not isinstance(t, DTensor):
+        return t
+    if t.to_local().shape != t.shape:
+        raise ValueError(f"the DP step replicates its {name}; a leaf is sharded")
+    with torch.no_grad():
+        return t.to_local()
+
+
+def dp_mean(
+    grads: Any, err: Any, mesh: Mesh, compression: CompressionConfig
+) -> tuple[Any, Any]:
+    """This rank's gradients compressed and mean-reduced over the mesh's
+    data axes, one level at a time — intra-pod ("data") first, then
+    cross-pod ("pod") — the error state carried through both levels."""
+    for ax in reversed(batch_axes(mesh)):
+        grads, err = compressed_mean(grads, err, mesh.group(ax), compression)
+    return grads, err
+
+
 def make_dp_train_step(
-    cfg: ModelConfig, train: TrainConfig = TrainConfig(), group=None
+    cfg: ModelConfig, mesh: Mesh, train: TrainConfig = TrainConfig()
 ) -> Callable:
-    """Explicit DP over ``group`` (each rank passes its shard of the batch;
-    ``None`` is one replica): grads compressed with error feedback, then
-    mean-reduced.
+    """Explicit-DP step: params replicated, batch sharded over the data
+    axes, grads compressed (error feedback) then mean-reduced per axis
+    level — over "data" (within a pod), then over "pod" — each level with
+    the compression and the error state (the JAX package's loop).  On a
+    mesh no process group backs, every level is one replica.
 
     step(params, opt_state, err_state, batch)
         -> (params, opt_state, err_state, metrics)
+
+    The batch is placed by ``batch_shardings`` or whole (each rank keeps
+    its shard); params, state and errors are this rank's, plain tensors
+    or replicated DTensors, updated in place.
     """
 
     def step(params, opt_state, err, batch):
-        loss, grads = loss_and_grads(cfg, params, batch, train.microbatches)
-        grads, err = compressed_mean(grads, err, group, train.compression)
-        loss = pmean(loss, group)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
-        params, opt_state = adamw_update(train.opt, params, grads, opt_state)
-        metrics["step"] = opt_state["step"]
+        local_p = tree_map(lambda t: _replicated("params", t), params)
+        local_o = tree_map(lambda t: _replicated("optimizer state", t), opt_state)
+        local_e = tree_map(lambda t: _replicated("error state", t), err)
+        local_b = locals_of(batch, batch_shardings(batch, mesh))
+        loss, grads = loss_and_grads(cfg, local_p, local_b, train.microbatches)
+        grads, local_e = dp_mean(grads, local_e, mesh, train.compression)
+        metrics = {"loss": _data_mean(loss, mesh), "grad_norm": global_norm(grads)}
+        adamw_update(train.opt, local_p, grads, local_o)
+        opt_state["step"] = _like(opt_state["step"], local_o["step"])
+        metrics["step"] = local_o["step"]
+        err = tree_map(_like, err, local_e)
         return params, opt_state, err, metrics
 
     return step

@@ -579,14 +579,14 @@ def test_dp_step_with_one_replica():
     _, tb = _batches(CFG.vocab, 4, 16)
     step, _ = TT.make_train_step(CFG, MESH)
     p1, s1, m1 = step(tree_map(torch.clone, tp), TO.init_opt_state(tp), tb)
-    dp = TT.make_dp_train_step(CFG)
+    dp = TT.make_dp_train_step(CFG, MESH)
     err = TT.init_dp_error_state(tp)
     p2, s2, err, m2 = dp(tree_map(torch.clone, tp), TO.init_opt_state(tp), err, tb)
     assert torch.equal(m1["loss"], m2["loss"])
     for a, b in zip(leaves(p1), leaves(p2)):
         assert torch.equal(a, b)
     train = TT.TrainConfig(compression=TCmp.CompressionConfig(kind="int8", block=64))
-    dp8 = TT.make_dp_train_step(CFG, train)
+    dp8 = TT.make_dp_train_step(CFG, MESH, train)
     err = TT.init_dp_error_state(tp)
     _, _, err, m3 = dp8(tree_map(torch.clone, tp), TO.init_opt_state(tp), err, tb)
     assert torch.isfinite(m3["loss"]) and any(e.any() for e in leaves(err))
