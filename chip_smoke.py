@@ -71,13 +71,19 @@ check:
    Placement: a one-rank NCCL process group (``init_distributed``, as
    ``torchrun`` starts one) and ``make_host_mesh()`` over it; llama3.2-3b
    at full width trains the train phase's steps through the sharded step
-   (DTensor state, each layer gathered whole and each gradient
-   reduce-scattered back over NCCL), its losses within 3e-2 of the train
-   phase's (bit-equality printed), host ms a step beside the one-device
-   step's, NCCL kernels a step (``torch.profiler``), resident and peak
-   memory; at smoke size a checkpoint of the sharded state round-trips
-   bit for bit and one int8 ``make_dp_train_step`` step runs.  No
-   partitioned-GEMM kernel is launched, and the phase fits in 90 s.
+   (DTensor state; each layer's leaves gathered over "data" and computed
+   on their split along "model", each gradient reduce-scattered back over
+   NCCL), its losses within 3e-2 of the train phase's (bit-equality
+   printed), host ms a step beside the one-device step's, NCCL kernels a
+   step (``torch.profiler``), resident and peak memory; the trained
+   params then decode 8 greedy tokens of 4 rows on a 128-token cache
+   through ``launch.steps.sharded_decode_fn`` (the cache's KV sequence
+   split over "model") against the one-device ``decode_step``, logits
+   within 3e-2 and the greedy tokens equal (where they differ, the
+   one-device top-2 margin must lie within twice the bf16 band); at
+   smoke size a checkpoint of the sharded state round-trips bit for bit
+   and one int8 ``make_dp_train_step`` step runs.  No partitioned-GEMM
+   kernel is launched, and the phase fits in 90 s.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -131,7 +137,17 @@ and prints no result.
     python3 chip_smoke.py --obs-split
     python3 chip_smoke.py --obs-pairs N
 
-need no card and are not part of the run above.  The first prints where the
+need no card and are not part of the run above.
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        chip_smoke.py --placement-only --mesh DATA,MODEL
+
+runs only the placement phase, one card a rank, on a DATA × MODEL mesh
+(:func:`placement_only`): llama3.2-3b trained on rank 0's card alone
+first, then through the sharded step on the mesh (its losses within
+3e-2 of the one-card run's) and decoded through ``sharded_decode_fn``;
+where "model" is 4 wide or more, phi3.5-moe-42b-a6.6b served whole, its
+params drawn leaf by leaf.  Rank 0 prints the numbers.  The first prints where the
 armed side of the obs overhead pair spends its time, part by part and
 module by module, and the Python bytecode instructions each side runs
 (:func:`obs_split`).  The second runs ``N`` pairs of the gate's own
@@ -259,6 +275,9 @@ TRAIN_PHASE_S = 150.0
 # size one int8 DP step and a checkpoint round trip of the sharded state
 PLACEMENT_CKPT_DIR = "build/placement_ckpt"  # gitignored; removed after use
 PLACEMENT_PHASE_S = 90.0
+PLACEMENT_DECODE = (4, 128, 8)  # rows, max_seq, greedy tokens of the sharded decode
+PLACEMENT_ONLY_FLAG = "--placement-only"  # with --mesh DATA,MODEL, under torchrun
+MOE_WHOLE = "phi3.5-moe-42b-a6.6b"  # served whole where "model" is 4 wide or more
 # AdamW's bytes a parameter: the bf16 grad read, the f32 master, m and v read
 # and written, the bf16 param written
 ADAMW_BYTES_PER_PARAM = 28
@@ -1440,7 +1459,180 @@ def placement_train(torch, mesh, train: dict) -> dict:
         "max_rel_loss_err": max(errs),
         "losses_bit_equal": losses == train["losses"],
     }
-    del params, opt_state, m, batch
+    del opt_state, m, batch
+    gc.collect()
+    stats.update(placement_decode(torch, cfg, mesh, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _greedy(torch, fn, rows: slice, n: int, vocab: int) -> tuple[list, list, float]:
+    """``n`` greedy decode steps of ``fn(token, cache_len) -> logits`` from
+    seeded prompt tokens (this rank's ``rows`` of them): the logits and
+    tokens of each step, and the steps' host ms in all."""
+    gen = torch.Generator().manual_seed(SEED)
+    tok = torch.randint(0, vocab, (PLACEMENT_DECODE[0], 1), generator=gen)[rows].cuda()
+    lens = torch.zeros(tok.shape[0], dtype=torch.int32, device=tok.device)
+    logits, tokens, ms = [], [], 0.0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = fn(tok, lens)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ms += (time.perf_counter() - t0) * 1e3
+        logits.append(lg.float())
+        tokens.append(tok)
+        lens = lens + 1
+    return logits, tokens, ms
+
+
+def _my_rows(t, mesh) -> slice:
+    """This rank's rows of a batch-leading ``t`` placed as a batch."""
+    from repro_torch.distributed.sharding import batch_shardings
+
+    sh = batch_shardings({"t": t}, mesh)["t"]
+    return sh.local_slices(t.shape, mesh.device_mesh.get_coordinate())[0]
+
+
+def _same_greedy(torch, got, got_tok, ref, ref_tok, rows) -> tuple[list, int, int]:
+    """Each step's logits of this rank's ``rows`` within ``BF16_TOL`` of the
+    reference's and the greedy tokens equal, by tests/test_torch_serving.py's
+    margin rule: where a row's tokens first differ, the reference's top-2
+    margin must lie within twice the bf16 band (rounding alone can flip the
+    argmax there), and the row is compared no further (its prefixes
+    differ).  Returns the errors, the equal tokens and the rows flipped."""
+    live = torch.ones(got_tok[0].shape[0], dtype=torch.bool, device=got_tok[0].device)
+    errs, equal, flips = [], 0, 0
+    for a, ta, b, tb in zip(got, got_tok, ref, ref_tok):
+        b, tb = b[rows], tb[rows]
+        if live.any():
+            errs.append(float((a - b)[live].abs().max() / b[live].abs().max()))
+        differ = (ta != tb)[:, 0] & live
+        for r in differ.nonzero()[:, 0].tolist():
+            top = b[r, -1].topk(2).values
+            margin = float(top[0] - top[1])
+            bound = 2 * (BF16_TOL + BF16_TOL * abs(float(top[0])))
+            check(margin <= bound, f"greedy token differs at margin {margin}")
+            flips += 1
+        equal += int((live & ~differ).sum())
+        live &= ~differ
+    check(max(errs) <= BF16_TOL, f"sharded decode logits: {errs}")
+    check(equal > 0, "sharded decode: no greedy token compared")
+    return errs, equal, flips
+
+
+def placement_decode(torch, cfg, mesh, params) -> dict:
+    """``cfg`` at full width through ``launch.steps.sharded_decode_fn`` on
+    ``mesh`` (the heads, ff columns and vocab split over "model", the
+    cache's rows over "data" and its KV sequence over "model"):
+    ``PLACEMENT_DECODE`` greedy tokens against the one-device
+    ``decode_step`` on the whole params, every step's logits within
+    ``BF16_TOL`` and the greedy tokens equal (``_same_greedy``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch._tree import tree_map
+    from repro_torch.distributed.sharding import (
+        cache_shardings,
+        locals_of,
+        params_shardings,
+    )
+    from repro_torch.launch.steps import sharded_decode_fn
+    from repro_torch.models.model import decode_step, init_cache
+
+    n_rows, max_seq, n = PLACEMENT_DECODE
+    p_sh = params_shardings(params, mesh)
+    local = locals_of(params, p_sh)
+    cache = init_cache(cfg, n_rows, max_seq, device="cuda")
+    c_sh = cache_shardings(cache, mesh)
+    local_c = tree_map(lambda t: t.clone(), locals_of(cache, c_sh))
+    rows = _my_rows(cache["k"][0], mesh)
+    fn = sharded_decode_fn(cfg, p_sh, c_sh)
+    with torch.no_grad():
+        got, got_tok, ms = _greedy(
+            torch, lambda t, c: fn(local, local_c, t, c)[0], rows, n, cfg.vocab
+        )
+        del local_c
+        whole = tree_map(
+            lambda t: t.full_tensor() if isinstance(t, DTensor) else t, params
+        )
+        ref, ref_tok, one_ms = _greedy(
+            torch,
+            lambda t, c: decode_step(cfg, whole, cache, t, c)[0],
+            slice(None),
+            n,
+            cfg.vocab,
+        )
+        del whole, cache
+    errs, equal, flips = _same_greedy(torch, got, got_tok, ref, ref_tok, rows)
+    return {
+        "decode_tokens": n,
+        "decode_rows": n_rows,
+        "decode_max_rel_err": max(errs),
+        "decode_greedy_equal": equal,
+        "decode_greedy_flips_at_a_tie": flips,
+        "decode_ms_a_step": ms / n,
+        "decode_tokens_per_s": n_rows * n / ms * 1e3,
+        "one_device_decode_ms_a_step": one_ms / n,
+    }
+
+
+def moe_whole(torch, mesh) -> dict:
+    """``MOE_WHOLE`` at full width and depth served through
+    ``sharded_decode_fn``: its params drawn and placed leaf by leaf
+    (``init_params_sharded``, as ``init_sharded`` draws them; no AdamW
+    state), its experts split over "model", ``PLACEMENT_DECODE`` greedy
+    tokens; finite logits of the whole vocab."""
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import (
+        cache_shardings,
+        locals_of,
+        params_shardings,
+    )
+    from repro_torch.launch.steps import sharded_decode_fn
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.training.train_loop import init_params_sharded
+
+    cfg = get(MOE_WHOLE).model
+    n_rows, max_seq, n = PLACEMENT_DECODE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params_sharded(cfg, mesh, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    p_sh = params_shardings(init_params(cfg, device="meta"), mesh)
+    local = locals_of(params, p_sh)
+    cache = init_cache(cfg, n_rows, max_seq, device="cuda")
+    c_sh = cache_shardings(cache, mesh)
+    local_c = tree_map(lambda t: t.clone(), locals_of(cache, c_sh))
+    rows = _my_rows(cache["k"][0], mesh)
+    del cache
+    fn = sharded_decode_fn(cfg, p_sh, c_sh)
+    with torch.no_grad():
+        logits, _, ms = _greedy(
+            torch, lambda t, c: fn(local, local_c, t, c)[0], rows, n, cfg.vocab
+        )
+    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+    check(finite and logits[-1].shape[-1] == cfg.vocab, f"{MOE_WHOLE}: logits")
+    stats = {
+        "arch": MOE_WHOLE,
+        "layers": cfg.n_layers,
+        "experts_a_rank": p_sh["blocks"]["moe"]["up"].shard_shape(
+            params["blocks"]["moe"]["up"].shape
+        )[1],
+        "init_s": init_s,
+        "resident_bytes": resident,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "decode_ms_a_step": ms / n,
+        "tokens_per_s": n_rows * n / ms * 1e3,
+    }
+    del params, local, local_c, logits
     gc.collect()
     torch.cuda.empty_cache()
     return stats
@@ -1552,6 +1744,102 @@ def placement_phase(torch, K, train: dict) -> dict:
     phase_s = stats["phase_s"]
     check(phase_s <= PLACEMENT_PHASE_S, f"placement took {phase_s:.1f} s")
     return stats
+
+
+def one_card_train(torch) -> dict:
+    """llama3.2-3b at full width on this card alone, as the train phase
+    trains it (the same seed, batches and steps): the losses, the median
+    host ms of steps 2 to 5, the peak memory."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_sharded,
+        make_train_step,
+    )
+
+    cfg = get(TRAIN_ARCH).model
+    card = _mesh((1, 1), ("data", "model"), "cuda")  # this card, no group
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_sharded(cfg, card, seed=SEED)
+    step, _ = make_train_step(cfg, card, TrainConfig(opt=OptConfig(**TRAIN_OPT)))
+    dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED)
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        batch = make_batch(dcfg, i, card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    stats = {
+        "losses": losses,
+        "step_ms_median": statistics.median(ms[1:-1]),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "device_ms": None,
+    }
+    del params, opt_state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def placement_only(argv: list) -> int:
+    """``--placement-only --mesh DATA,MODEL`` under ``python -m
+    torch.distributed.run --nproc-per-node N``, one card a rank: the
+    placement phase's llama3.2-3b sharded train step and sharded decode
+    on that mesh, held against llama3.2-3b trained on rank 0's card alone
+    first (its losses within ``BF16_TOL``) and against the one-device
+    ``decode_step``; then, where "model" is 4 wide or more,
+    ``MOE_WHOLE`` served whole (``moe_whole``).  Rank 0 prints the
+    numbers and the card line.  No partitioned-GEMM kernel is launched."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    if argv[:1] != ["--mesh"] or len(argv) != 2:
+        print(f"usage: {PLACEMENT_ONLY_FLAG} --mesh DATA,MODEL", file=sys.stderr)
+        return 2
+    data, model = (int(x) for x in argv[1].split(","))
+    import repro_torch.kernels as K
+    from repro_torch.launch.mesh import init_distributed, make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed("cuda")
+    try:
+        check(dist.get_world_size() == data * model, f"{data}x{model} mesh")
+        mesh = make_host_mesh(model=model, data=data, device="cuda")
+        rank = dist.get_rank()
+        K.reset_launch_counts()
+        one = [one_card_train(torch) if rank == 0 else None]
+        dist.broadcast_object_list(one, src=0)
+        t0 = time.perf_counter()
+        stats = {"mesh": mesh.axis_sizes, "one_card": one[0]}
+        stats["placement"] = placement_train(torch, mesh, one[0])
+        if model >= 4:
+            stats["moe_whole"] = moe_whole(torch, mesh)
+        stats["phase_s"] = time.perf_counter() - t0
+        launches = K.launch_counts()
+        check(sum(launches.values()) == 0, f"placement launched: {launches}")
+        dist.barrier()
+        if rank == 0:
+            card = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True,
+                text=True,
+                check=True,
+            ).stdout.strip()
+            log(f"placement-only: {json.dumps(stats)}; {launches}")
+            print(card)
+            print(json.dumps({"ok": True, "placement_only": stats["mesh"]}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2829,6 +3117,8 @@ def main() -> int:
         return obs_split_main()
     if sys.argv[1:2] == [OBS_PAIRS_FLAG] and len(sys.argv) == 3:
         return obs_pairs(int(sys.argv[2]))
+    if sys.argv[1:2] == [PLACEMENT_ONLY_FLAG]:
+        return placement_only(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():

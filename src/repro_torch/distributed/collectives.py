@@ -14,11 +14,20 @@ the compiled step.  Here the sharded train step
   DTensor takes the gradient of a replicated tensor to be the same on
   every rank and only slices it, which is wrong when the ranks computed
   on different batch shards;
+* the tensor-parallel pair over the "model" axis (:class:`ModelAxis`),
+  conjugate under autograd: :func:`copy_to_model` is the identity forward
+  and an all-reduce of the gradient backward, where a replicated
+  activation enters a product split over "model"; :func:`reduce_from_model`
+  all-reduces forward and is the identity backward, after a product whose
+  contraction dim is split.  :func:`scatter_from_model` is the
+  reduce-scatter form of the second (its backward all-gathers).  Partial
+  sums are reduced in f32 and rounded once, to the input's dtype;
 * :func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce_`,
   :func:`all_to_all_` — one collective each, counted in the log that
   :func:`count_collectives` opens (kinds and wire bytes as
   ``launch.hlo_analysis`` counts XLA's: ring algorithms, an all-reduce
-  moves its tensor twice).
+  moves its tensor twice).  On a "model" axis of one rank the
+  tensor-parallel functions issue none: there is nothing to reduce.
 """
 
 from __future__ import annotations
@@ -97,9 +106,11 @@ def reduce_scatter(t: torch.Tensor, dim: int, group, log=None) -> torch.Tensor:
     return out
 
 
-def all_reduce_(t: torch.Tensor, group, log=None) -> torch.Tensor:
-    """``t`` summed over ``group``, in place."""
-    dist.all_reduce(t, group=group)
+def all_reduce_(
+    t: torch.Tensor, group, log=None, op=dist.ReduceOp.SUM
+) -> torch.Tensor:
+    """``t`` summed (or reduced by ``op``) over ``group``, in place."""
+    dist.all_reduce(t, op=op, group=group)
     _record(log, "all-reduce", t)
     return t
 
@@ -161,3 +172,101 @@ def gather(local: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
     gradient is reduce-scattered back to the shard and averaged over the
     data replicas, summed in f32."""
     return _Gather.apply(local, plan)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the "model" axis
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelAxis:
+    """This rank's line along the mesh's "model" axis: its ``size``, the
+    rank's place on it (``rank``) and its process ``group``.  A layer
+    whose leaves are its slices along "model" reads it from the params
+    tree it is lent (``distributed.sharding.lend_params``)."""
+
+    size: int
+    rank: int
+    group: object
+
+
+def _f32_copy(t: torch.Tensor) -> torch.Tensor:
+    """A new f32 tensor of ``t`` (the collectives write into it)."""
+    return t.to(torch.float32, copy=True)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis, ctx.log = axis, _LOG.get()
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = _f32_copy(grad)
+        all_reduce_(g, ctx.axis.group, ctx.log)
+        return g.to(grad.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        g = _f32_copy(t)
+        all_reduce_(g, axis.group)
+        return g.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScatterFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, axis):
+        ctx.dim, ctx.axis, ctx.log = dim, axis, _LOG.get()
+        return reduce_scatter(t.float(), dim, axis.group).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.dim, ctx.axis.group, ctx.log), None, None
+
+
+def copy_to_model(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """``t``, replicated along "model", as it enters a product split over
+    it: the identity; under autograd the ranks' partial gradients of ``t``
+    are summed (f32)."""
+    return t if axis.size == 1 else _CopyToModel.apply(t, axis)
+
+
+def reduce_from_model(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The sum over "model" of the ranks' partial ``t`` (in f32, rounded
+    once to ``t``'s dtype); under autograd each rank's gradient is the
+    sum's."""
+    return t if axis.size == 1 else _ReduceFromModel.apply(t, axis)
+
+
+def scatter_from_model(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """The sum over "model" of the ranks' partial ``t`` (f32), cut along
+    ``dim`` into one chunk a rank: this rank's; under autograd the
+    gradient of every rank's ``t`` is the chunks' gradients joined."""
+    if axis.size == 1:
+        return t
+    return _ScatterFromModel.apply(t, dim % t.dim(), axis)
+
+
+def max_over_model(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over "model" (no gradient: it
+    shifts a softmax, which does not depend on the shift)."""
+    t = t.detach()
+    if axis.size == 1:
+        return t
+    return all_reduce_(t.clone(), axis.group, op=dist.ReduceOp.MAX)
+
+
+def gather_from_model(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """The ranks' ``t`` joined along ``dim`` in rank order (no gradient:
+    the whole logits and the decode step's heads)."""
+    if axis.size == 1:
+        return t
+    return all_gather(t.detach(), dim % t.dim(), axis.group)

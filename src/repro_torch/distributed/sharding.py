@@ -14,15 +14,24 @@ A spec is a tuple with one entry per tensor dim: a mesh-axis name, a tuple
 of names, or ``None``, entry for entry the JAX ``PartitionSpec`` in its
 normal form (``_pspec``).  A
 :class:`NamedSharding` places a tensor by its spec.  On a mesh that a
-process group backs (``launch.mesh``), that is DTensor's
-``distribute_tensor``: each rank keeps the slice that JAX's
+process group backs (``launch.mesh``), that is a ``DTensor`` of this
+rank's local slice: each rank keeps the slice that JAX's
 ``NamedSharding.devices_indices_map`` gives the device at its place in
 the mesh.  On one device without a group it is ``.to(device)``.
 
-For use, a sharded leaf is gathered whole (``distributed.collectives``):
-:func:`gather_plan` says over which axes' groups, and :func:`lend_params`
-gives the model a tree of local shards that it gathers as it reads them,
-one layer at a time for the stacked blocks (:class:`ShardedStack`).
+For use, a sharded leaf is gathered over the data axes
+(``distributed.collectives``, FSDP) and, over "model", only where the
+layer that reads it cannot compute on its split (:func:`model_use`): the
+attention heads, the ff columns, the vocab and the experts stay this
+rank's slices along "model", and their layers compute on them
+(tensor parallelism; ``models.layers``, ``models.moe``,
+``models.rglru``, ``models.model``).  :func:`gather_plan` says over which
+axes' groups a leaf is gathered and how its gradient is reduced, and
+:func:`lend_params` gives the model a tree of local shards that it
+gathers as it reads them, one layer at a time for the stacked blocks
+(:class:`ShardedStack`).  A layer dict whose leaves are left split is a
+:class:`SplitParams`, which carries the "model" axis (its width and this
+rank's place on it); the layer reads it there, never the mesh.
 
 Batches shard their dim 0 over ("pod", "data"); decode caches shard the
 batch over the data axes and the KV sequence over "model".
@@ -35,10 +44,10 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch._tree import map_with_path, tree_map
-from repro_torch.distributed.collectives import GatherPlan, gather
+from repro_torch._tree import leaves, map_with_path, tree_map
+from repro_torch.distributed.collectives import GatherPlan, ModelAxis, gather
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import ModelConfig
 
@@ -181,8 +190,21 @@ class NamedSharding:
             if t.device_mesh is not dm or tuple(t.placements) != self.placements:
                 raise ValueError(f"a DTensor placed {t.placements}, not {self.spec}")
             return t
-        # every rank holds the whole of ``t``: keep the slice, send nothing
-        return distribute_tensor(t, dm, self.placements, src_data_rank=None)
+        # every rank holds the whole of ``t``: keep the slice, send nothing.
+        # A copy of this rank's slice alone (``distribute_tensor`` copies
+        # every rank's chunk first), so that the whole of ``t`` is freed
+        # with ``t`` and a rank's peak is its shards plus one whole leaf
+        local = t[self.local_slices(t.shape, dm.get_coordinate())]
+        if local.numel() < t.numel():
+            local = local.clone(memory_format=torch.contiguous_format)
+        return DTensor.from_local(
+            local,
+            dm,
+            self.placements,
+            run_check=False,
+            shape=t.shape,
+            stride=t.stride(),
+        )
 
     def shard_shape(self, shape) -> tuple[int, ...]:
         """The shape each device holds of a ``shape`` tensor: every dim
@@ -308,11 +330,82 @@ def locals_of(tree, shardings):
 # ---------------------------------------------------------------------------
 
 
-def gather_plan(sh: NamedSharding, skip: int = 0) -> GatherPlan:
-    """How a leaf placed by ``sh`` is gathered whole for use and its
-    gradient reduced back (``collectives.GatherPlan``); ``skip`` drops that
-    many leading dims of the spec (1 for a layer of a stacked leaf, whose
-    layer dim no rule shards)."""
+def _on_model(sh: NamedSharding, dim: int) -> bool:
+    """Whether tensor dim ``dim`` of a leaf placed by ``sh`` is split over
+    "model"."""
+    return "model" in spec_axes(sh.spec[dim])
+
+
+# the layer dicts that can compute on leaves split over "model", and the
+# dim of each leaf that must be split for them to (negative: from the end)
+_SPLIT_DIMS = {
+    "attn": {"wq": -1, "wo": -2},
+    "cross": {"wq": -1, "wo": -2},
+    "mlp": {"gate": -1, "up": -1, "down": -2},
+    "moe": {"gate": -3, "up": -3, "down": -3},  # the expert dim
+    "rglru": {
+        "in_x": -1, "in_gate": -1, "wa": -2, "wx": -2, "ba": -1, "bx": -1,
+        "lambda": -1, "out": -2,
+    },
+}
+_KV = ("wk", "wv", "bk", "bv")
+_LAYER_KEYS = (*_SPLIT_DIMS, "ssd")
+
+
+def _layer_splits(key: str, shs: dict, cfg: ModelConfig, tp: int) -> bool:
+    """Whether the layer dict ``key`` computes on its leaves' split over
+    "model": every leaf of ``_SPLIT_DIMS`` split on its dim (the rglru's
+    conv too), and for attention the heads divisible by the width.  The
+    SSD block never does: Mamba2's packed ``in_proj`` (z, x, B, C, dt in
+    one output) and its conv do not split evenly along what they pack
+    (``models.ssm``), so it is gathered over "model" and runs whole."""
+    dims = _SPLIT_DIMS.get(key)
+    if dims is None:
+        return False
+    if not all(_on_model(shs[n], d) for n, d in dims.items() if n in shs):
+        return False
+    if key in ("attn", "cross"):
+        return cfg.n_heads % tp == 0
+    if key == "rglru":
+        return all(_on_model(sh, -1) for sh in shs["conv"].values())
+    return True
+
+
+def model_use(
+    name: str, sh: NamedSharding, cfg: ModelConfig, tp: int, layer: str | None
+) -> str:
+    """How the layer reads leaf ``name`` (in layer dict ``layer``, None
+    outside one) along "model", ``tp`` wide:
+
+    * ``"split"`` — it computes on this rank's slice: no gather over
+      "model", and the slice's gradient is this rank's alone;
+    * ``"part"`` — it gathers the leaf whole (where split) and reads the
+      part its rank's share of the work needs (the kv heads of the rank's
+      query heads where the kv heads do not divide; the router, whose
+      gates reach only the rank's experts' outputs): the ranks' gradients
+      are partial sums, summed over "model";
+    * ``"whole"`` — every rank of "model" computes the same on the whole
+      leaf: gathered over "model" where split, and the gradients, equal on
+      every rank, are summed and divided by the width.
+    """
+    if layer is None:  # the vocab tables
+        dim = {"embed": 0, "lm_head": -1}.get(name)
+        return "split" if dim is not None and _on_model(sh, dim) else "whole"
+    if name in _KV and layer in ("attn", "cross"):
+        if _on_model(sh, -1) and cfg.n_kv_heads % tp == 0:
+            return "split"
+        return "part"
+    if name == "router":
+        return "part"
+    return "split"
+
+
+def gather_plan(sh: NamedSharding, skip: int = 0, use: str = "whole") -> GatherPlan:
+    """How a leaf placed by ``sh`` is gathered for use and its gradient
+    reduced back (``collectives.GatherPlan``): over every axis its spec
+    names but "model" where the layer computes on the split (``use``, see
+    :func:`model_use`); ``skip`` drops that many leading dims of the spec
+    (1 for a layer of a stacked leaf, whose layer dim no rule shards)."""
     mesh = sh.mesh
     sizes = mesh.axis_sizes
     entries = [sh._entry(i) for i in range(len(sh.spec))]
@@ -321,43 +414,106 @@ def gather_plan(sh: NamedSharding, skip: int = 0) -> GatherPlan:
     steps, named = [], set()
     for i, entry in enumerate(entries[skip:]):
         for a in reversed(spec_axes(entry)):  # the minor axis first
+            if a == "model" and use == "split":
+                continue
             steps.append((i, mesh.group(a)))
             named.add(a)
     data = batch_axes(mesh)
+    reduce = [mesh.group(a) for a in data if a not in named]
+    if use == "part" and "model" in sizes and "model" not in named:
+        reduce.append(mesh.group("model"))  # replicated, read in parts
     replicas = int(np.prod([sizes[a] for a in data]))
-    copies = int(np.prod([sizes[a] for a in named if a not in data]))
+    same = [a for a in named if a not in data and not (a == "model" and use == "part")]
+    copies = int(np.prod([sizes[a] for a in same]))
     return GatherPlan(
-        gather=tuple(steps),
-        reduce=tuple(mesh.group(a) for a in data if a not in named),
-        scale=1.0 / (replicas * copies),
+        gather=tuple(steps), reduce=tuple(reduce), scale=1.0 / (replicas * copies)
     )
+
+
+class SplitParams(dict):
+    """A layer's params of which some leaves are this rank's slices along
+    "model": ``tp`` is that axis (``collectives.ModelAxis``), from which
+    the layer computes its share of the work.  The top of a lent tree is
+    one where the vocab tables are split."""
+
+    def __init__(self, tree: dict, tp: ModelAxis):
+        super().__init__(tree)
+        self.tp = tp
+
+
+def model_axis(mesh: Mesh) -> ModelAxis | None:
+    """This rank's line along "model" where a process group backs the
+    mesh and it has that axis, else None."""
+    if mesh.device_mesh is None or "model" not in mesh.axis_names:
+        return None
+    rank = mesh.device_mesh.get_local_rank("model")
+    return ModelAxis(mesh.axis_sizes["model"], rank, mesh.group("model"))
+
+
+def _plans(shardings: dict, cfg: ModelConfig, skip: int, path=()):
+    """(the ``GatherPlan`` tree of a params subtree, the paths of its layer
+    dicts that compute on their split)."""
+    mesh = leaves(shardings)[0].mesh
+    tp = mesh.axis_sizes.get("model", 1)
+    split: set = set()
+
+    def walk(shs, path, layer, on):
+        if not isinstance(shs, dict):
+            if layer and not on:
+                return gather_plan(shs, skip, "whole")
+            return gather_plan(shs, skip, model_use(path[-1], shs, cfg, tp, layer))
+        if path and path[-1] in _LAYER_KEYS:
+            layer, on = path[-1], _layer_splits(path[-1], shs, cfg, tp)
+            if on:
+                split.add(path)
+        return {k: walk(v, path + (k,), layer, on) for k, v in shs.items()}
+
+    return walk(shardings, path, None, False), frozenset(split)
+
+
+def _lent(tree, plans, split, tp, path=()):
+    """``tree`` of local shards gathered by ``plans``; the dicts at
+    ``split`` a :class:`SplitParams` of ``tp``."""
+    if not isinstance(tree, dict):
+        return gather(tree, plans)
+    out = {k: _lent(v, plans[k], split, tp, path + (k,)) for k, v in tree.items()}
+    return SplitParams(out, tp) if path in split else out
 
 
 class ShardedStack(dict):
     """A stacked-layer subtree of local shards.  ``models.model`` reads a
-    layer through ``gather_layer``, which gathers that layer's leaves
-    whole (inside the layer's rematerialised body: the backward gathers
-    again instead of keeping them)."""
+    layer through ``gather_layer``, which gathers that layer's leaves for
+    use (inside the layer's rematerialised body: the backward gathers
+    again instead of keeping them), its split layers' dicts
+    :class:`SplitParams`."""
 
-    def __init__(self, local: dict, shardings: dict):
+    def __init__(self, local: dict, shardings: dict, cfg: ModelConfig):
         super().__init__(local)
-        self.plans = tree_map(lambda sh: gather_plan(sh, skip=1), shardings)
+        self.plans, self.split = _plans(shardings, cfg, skip=1)
+        self.tp = model_axis(leaves(shardings)[0].mesh)
 
     def gather_layer(self, layer: dict) -> dict:
-        return tree_map(gather, layer, self.plans)
+        return _lent(layer, self.plans, self.split, self.tp)
 
 
-def lend_params(local, shardings) -> dict:
+def lend_params(local, shardings, cfg: ModelConfig) -> dict:
     """The params tree the model reads, from local shards: each stacked
-    subtree a :class:`ShardedStack`, every other leaf gathered whole now
-    (once a forward pass)."""
+    subtree a :class:`ShardedStack`, every other leaf gathered for use now
+    (once a forward pass); the whole tree a :class:`SplitParams` where the
+    vocab tables are split over "model"."""
     out = {}
+    tp = model_axis(leaves(shardings)[0].mesh)
     for k, v in local.items():
         if k.startswith(_STACKED_PREFIXES):
-            out[k] = ShardedStack(v, shardings[k])
-        else:
-            out[k] = tree_map(lambda t, sh: gather(t, gather_plan(sh)), v, shardings[k])
-    return out
+            out[k] = ShardedStack(v, shardings[k], cfg)
+            continue
+        plans, split = _plans(shardings[k], cfg, skip=0, path=(k,))
+        out[k] = _lent(v, plans, split, tp, (k,))
+    vocab = all(
+        model_use(k, shardings[k], cfg, 1, None) == "split"
+        for k in ("embed", "lm_head")
+    )
+    return SplitParams(out, tp) if vocab and tp is not None else out
 
 
 # ---------------------------------------------------------------------------
@@ -433,3 +589,24 @@ def cache_shardings(cache_tree, mesh: Mesh):
     return map_with_path(
         lambda p, x: NamedSharding(mesh, cache_pspec(p, x, mesh)), cache_tree
     )
+
+
+class SplitCache(dict):
+    """A decode cache of local shards: ``seq`` maps each KV cache whose
+    sequence dim is split over "model" to that axis
+    (``collectives.ModelAxis``), which ``models.model.decode_step`` reads."""
+
+    def __init__(self, local: dict, seq: dict):
+        super().__init__(local)
+        self.seq = seq
+
+
+def lend_cache(local: dict, shardings: dict) -> SplitCache:
+    """The cache tree ``decode_step`` reads from this rank's shards."""
+    tp = model_axis(leaves(shardings)[0].mesh)
+    seq = {
+        k: tp
+        for k, sh in shardings.items()
+        if tp is not None and not isinstance(sh, dict) and _on_model(sh, 2)
+    }
+    return SplitCache(local, seq)

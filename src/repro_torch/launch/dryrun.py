@@ -20,12 +20,15 @@ keeps the JAX package's keys:
   ``collective_bytes`` (their sum) and ``temp_bytes`` (the peak of live
   bytes beyond the arguments) — from a second run of the step as rank 0
   of the mesh runs it, in a fake process group of the mesh's size
-  (``launch.steps.Lowerable.partition``).  The port partitions otherwise
-  than GSPMD (each layer gathered whole, no tensor-parallel compute, the
-  decode cache split over the batch only), so these are the port's
-  numbers, not XLA's; a train cell whose batch shard is smaller than the
-  microbatch count accumulates over as many microbatches as the shard
-  allows;
+  (``launch.steps.Lowerable.partition``): each layer's leaves gathered
+  over the data axes, the heads, ff columns, vocab, experts and lru
+  channels computed split over "model", the decode cache split over its
+  batch and KV sequence as ``arg_bytes`` counts it.  The port partitions
+  by its own rules, not GSPMD's (the SSD block and attention whose heads
+  "model" does not divide run whole on every rank of "model"), so these
+  are the port's numbers, not XLA's; a train cell whose batch shard is
+  smaller than the microbatch count accumulates over as many
+  microbatches as the shard allows;
 * ``bytes_per_device``, ``flops_xla_raw``, ``bytes_xla_raw``,
   ``transcendentals`` — only a compiler can give these: ``null``, never
   an estimate.

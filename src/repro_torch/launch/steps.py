@@ -24,9 +24,16 @@ mesh runs it, on meta shards, in a fake process group of the mesh's size
 returns at once), the port's counterpart of XLA's partitioned module: it
 counts the port's collectives and the rank's peak of live bytes beyond
 its arguments (``torch.distributed._tools.mem_tracker.MemTracker``).  The
-port partitions otherwise than GSPMD — each layer's leaves gathered whole
-(FSDP), no tensor-parallel compute, a decode cache split over the batch
-only — so its counts are its own, not XLA's.
+rank runs the cell's step as :func:`sharded_prefill_fn`,
+:func:`sharded_decode_fn` and ``training.train_loop.sharded_step_fn``
+run it on real tensors over gloo or NCCL: each layer's leaves gathered
+over the data axes (FSDP), the heads, ff columns, vocab, experts and lru
+channels computed split over "model" (tensor parallelism), and the decode
+cache split as ``cache_shardings`` says (batch over the data axes, KV
+sequence over "model").  The port partitions by its own rules, not
+GSPMD's (the SSD block and attention whose heads "model" does not divide
+run whole on every rank of "model"), so its counts are its own, not
+XLA's.
 """
 
 from __future__ import annotations
@@ -41,7 +48,6 @@ import torch
 import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch._tree import tree_map
 from repro_torch.configs.base import ArchSpec, input_specs, params_spec
 from repro_torch.distributed.collectives import count_collectives
 from repro_torch.distributed.sharding import (
@@ -50,11 +56,12 @@ from repro_torch.distributed.sharding import (
     NamedSharding,
     batch_shardings,
     cache_shardings,
+    lend_cache,
     lend_params,
     params_shardings,
 )
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.model import ModelConfig, decode_step, prefill
 from repro_torch.training.optimizer import adamw_update, init_opt_state
 from repro_torch.training.train_loop import (
     TrainConfig,
@@ -186,11 +193,39 @@ def _meta_shards(tree, shardings):
     return torch.empty(shape, dtype=tree.dtype, device="meta")
 
 
-def _batch_only(sh: NamedSharding) -> NamedSharding:
-    """A cache sharding with its split of the sequence over "model" taken
-    out: the port's decode reads a cache split over the batch only."""
-    spec = tuple(e if i == 1 else None for i, e in enumerate(sh.spec))
-    return NamedSharding(sh.mesh, spec)
+def sharded_prefill_fn(cfg: ModelConfig, shardings: Any) -> Callable:
+    """The prefill step on local shards: ``fn(params, batch) -> logits``,
+    ``params`` this rank's shards placed by ``shardings`` and ``batch`` its
+    batch shard; the (B/data, 1, vocab) logits are whole.  Runs on real
+    tensors over gloo or NCCL and on meta shards in the dry run's fake
+    group."""
+
+    def fn(params, batch):
+        return prefill(
+            cfg,
+            lend_params(params, shardings, cfg),
+            batch["tokens"],
+            frames=batch.get("frames"),
+            patches=batch.get("patches"),
+        )
+
+    return fn
+
+
+def sharded_decode_fn(cfg: ModelConfig, shardings: Any, cache_sh: Any) -> Callable:
+    """The decode step on local shards: ``fn(params, cache, token,
+    cache_len, live=None) -> (logits, cache)``, every argument this rank's
+    shard (``cache`` placed by ``cache_sh``: its batch over the data axes,
+    its KV sequence over "model"; written in place); the logits are whole
+    over the vocab."""
+
+    def fn(params, cache, token, cache_len, live=None):
+        lent = lend_params(params, shardings, cfg)
+        split = lend_cache(cache, cache_sh)
+        logits, _ = decode_step(cfg, lent, split, token, cache_len, live)
+        return logits, cache
+
+    return fn
 
 
 def build_lowerable(
@@ -269,7 +304,7 @@ def build_lowerable(
             psh = params_shardings(p_sds, m, rules)
             local_p = _meta_shards(p_sds, psh)
             local_b = _meta_shards(batch_sds, batch_shardings(batch_sds, m))
-            return (lambda p, b: step(lend_params(p, psh), b)), (local_p, local_b), 1
+            return sharded_prefill_fn(cfg, psh), (local_p, local_b), 1
 
         return lowerable(
             step,
@@ -294,7 +329,7 @@ def build_lowerable(
             if m.device_mesh is None:
                 return step, args, 1
             psh = params_shardings(p_sds, m, rules)
-            csh = tree_map(_batch_only, cache_shardings(cache_sds, m))
+            csh = cache_shardings(cache_sds, m)
             local_t = _meta_shards(tok, batch_shardings(tok, m))
             local = (
                 _meta_shards(p_sds, psh),
@@ -302,7 +337,7 @@ def build_lowerable(
                 local_t["token"],
                 local_t["cache_len"],
             )
-            return (lambda p, *rest: step(lend_params(p, psh), *rest)), local, 1
+            return sharded_decode_fn(cfg, psh, csh), local, 1
 
         return lowerable(
             step,

@@ -14,18 +14,30 @@ under autograd (``remat``), as ``jax.checkpoint`` does there.
 Initialisers take ``gen``: a ``torch.Generator`` (the tensors are drawn on
 its device), or the meta device, which gives every shape and dtype and
 allocates nothing (``param_count``, ``configs.params_spec``).  ``lead`` is
-the stacked leading axes (layers, experts).
+the stacked leading axes (layers, experts).  Every finished leaf passes
+through :func:`leaf`, where :func:`on_each_leaf` may place it before the
+next is drawn (``training.train_loop.init_params_sharded``).
+
+Tensor parallelism: a layer whose params dict is a
+``distributed.sharding.SplitParams`` computes on this rank's slices along
+"model" (``.tp``): attention on its heads (``wq``, ``wk``, ``wv`` split by
+column, ``wo`` by row), the MLP on its ff columns, each closed by one
+``reduce_from_model``; its input enters through ``copy_to_model``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.collectives import copy_to_model, reduce_from_model
 
 Params = dict[str, Any]
 
@@ -40,6 +52,26 @@ _DRAW_ELEMS = 1 << 26
 # initialisers
 # ---------------------------------------------------------------------------
 
+_ON_LEAF: contextvars.ContextVar = contextvars.ContextVar("on_leaf", default=None)
+
+
+@contextlib.contextmanager
+def on_each_leaf(fn: Callable[[torch.Tensor], Any]):
+    """Inside the block every initialiser hands each leaf it finishes to
+    ``fn`` and returns what ``fn`` returns, one leaf after the other in
+    the order they are drawn."""
+    token = _ON_LEAF.set(fn)
+    try:
+        yield
+    finally:
+        _ON_LEAF.reset(token)
+
+
+def leaf(t: torch.Tensor):
+    """A finished parameter leaf, as :func:`on_each_leaf`'s hook makes it."""
+    fn = _ON_LEAF.get()
+    return t if fn is None else fn(t)
+
 
 def _init_device(gen) -> torch.device:
     """The device an initialiser's ``gen`` draws on."""
@@ -51,18 +83,19 @@ def normal(gen, shape: tuple[int, ...], scale: float = 1.0, dtype=torch.bfloat16
     dev = _init_device(gen)
     out = torch.empty(shape, dtype=dtype, device=dev)
     if dev.type == "meta":
-        return out
+        return leaf(out)
     rows = out.view(-1, shape[-1])
     step = max(1, _DRAW_ELEMS // shape[-1])
     for r in range(0, rows.shape[0], step):
         blk = rows[r : r + step]
         draw = torch.randn(blk.shape, generator=gen, device=dev, dtype=torch.float32)
         blk.copy_(draw.mul_(scale))
-    return out
+    return leaf(out)
 
 
 def uniform(gen, shape: tuple[int, ...], low: float, high: float) -> torch.Tensor:
-    """``shape`` ~ U[low, high) in f32."""
+    """``shape`` ~ U[low, high) in f32 (drawn, not yet a leaf: see
+    ``models.rglru.init_rglru``)."""
     dev = _init_device(gen)
     if dev.type == "meta":
         return torch.empty(shape, device=dev)
@@ -72,7 +105,7 @@ def uniform(gen, shape: tuple[int, ...], low: float, high: float) -> torch.Tenso
 
 def full(gen, shape: tuple[int, ...], value: float) -> torch.Tensor:
     """An f32 constant of ``shape`` (norm scales, biases)."""
-    return torch.full(shape, value, dtype=torch.float32, device=_init_device(gen))
+    return leaf(torch.full(shape, value, dtype=torch.float32, device=_init_device(gen)))
 
 
 def dense_init(
@@ -327,26 +360,72 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def local_heads(p: Params, cfg: AttnConfig, tp) -> AttnConfig:
+    """The attention config of this rank's share of the heads: ``n_heads
+    / tp.size`` query heads, and its own kv heads where ``wk`` is split
+    (``n_kv_heads / tp.size``), else all of them (``wk`` whole)."""
+    kv = cfg.n_kv_heads
+    if p["wk"].shape[-1] != cfg.kv_dim:
+        kv = p["wk"].shape[-1] // cfg.head_dim
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size, n_kv_heads=kv)
+
+
+def _kv_part(p: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnConfig]:
+    """Where the kv heads are whole (they do not split ``tp.size`` ways):
+    the columns of ``wk`` and ``wv`` (and their biases) that this rank's
+    query heads read — query head ``h`` reads kv head ``h // rep`` — and
+    the config over them.  Each kv head is taken once where the rank's
+    heads share it evenly, else once for every query head."""
+    local = local_heads(p, cfg, tp)
+    if local.n_kv_heads != cfg.n_kv_heads or tp.size == 1:
+        return p, local
+    h, rep = local.n_heads, cfg.n_heads // cfg.n_kv_heads
+    reads = [(tp.rank * h + j) // rep for j in range(h)]
+    kv = sorted(set(reads))
+    if h % len(kv) or reads != [k for k in kv for _ in range(h // len(kv))]:
+        kv = reads
+    cols = torch.tensor(
+        [k * cfg.head_dim + d for k in kv for d in range(cfg.head_dim)],
+        device=p["wk"].device,
+    )
+    part = dict(p)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            part[name] = p[name].index_select(-1, cols)
+    return part, dataclasses.replace(local, n_kv_heads=len(kv))
+
+
 def attention(
     p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Self-attention over a full sequence (training / prefill)."""
+    """Self-attention over a full sequence (training / prefill); on this
+    rank's heads where ``p`` is split over "model"."""
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, x.device)
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        p, cfg = _kv_part(p, cfg, tp)
+        x = copy_to_model(x, tp)
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = _chunked_attention(
         q, k, v, positions, positions, cfg.causal, cfg.window, cfg.chunk, cfg.q_chunks
     )
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    out = out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 def cross_attention(
     p: Params, cfg: AttnConfig, x: torch.Tensor, kv: torch.Tensor
 ) -> torch.Tensor:
-    """Encoder-decoder cross attention (no RoPE on the kv side)."""
+    """Encoder-decoder cross attention (no RoPE on the kv side); on this
+    rank's heads where ``p`` is split over "model"."""
     B, S, _ = x.shape
     Sk = kv.shape[1]
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        p, cfg = _kv_part(p, cfg, tp)
+        x, kv = copy_to_model(x, tp), copy_to_model(kv, tp)
     pos_q = _positions(B, S, x.device)
     pos_k = _positions(B, Sk, x.device)
     cfg_nc = dataclasses.replace(cfg, causal=False, window=None, use_rope=False)
@@ -358,7 +437,8 @@ def cross_attention(
         k = k + p["bk"].to(k.dtype).reshape(kv_shape[2:])
         v = v + p["bv"].to(v.dtype).reshape(kv_shape[2:])
     out = _chunked_attention(q, k, v, pos_q, pos_k, False, None, cfg.chunk)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    out = out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 def decode_attention(
@@ -434,6 +514,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP; on this rank's ff columns where ``p`` is split over
+    "model" (``gate`` and ``up`` by column, ``down`` by row)."""
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        x = copy_to_model(x, tp)
     if kind == "swiglu":
         h = silu(x @ p["gate"]) * (x @ p["up"])
     elif kind == "geglu":
@@ -444,7 +529,8 @@ def mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["up"]))
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return h @ p["down"]
+    out = h @ p["down"]
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,20 @@ unbind each stack once per call (under autograd, the backward of that is a
 single ``stack``, where indexing layer by layer would build a stack-sized
 gradient per layer) and rematerialise each layer body when ``cfg.remat``
 is set, as ``jax.checkpoint`` does in the JAX package.
+
+Tensor parallelism over "model" (a params tree lent by
+``distributed.sharding.lend_params``): where the tree is a ``SplitParams``
+its vocab tables are this rank's slices — the embedding looks up the
+rank's vocab range and ``reduce_from_model`` joins the rows, the head
+gives the rank's slice of the logits, ``loss_fn`` is a cross-entropy
+over the split vocab (its max, sum of exponentials and gold logit each
+reduced over "model", no (B, S, vocab) tensor gathered), and ``prefill``
+and ``decode_step`` return whole logits (the last position's slices
+all-gathered).  The layers read their own split from their dicts.  A
+decode cache whose KV sequence is split over "model" (a
+``distributed.sharding.SplitCache``) is written only by the rank whose
+positions hold the new slot, and each rank's partial softmax over its
+positions is combined by a max and a sum over "model" (log-sum-exp).
 """
 
 from __future__ import annotations
@@ -33,6 +47,12 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import leaves
+from repro_torch.distributed.collectives import (
+    copy_to_model,
+    gather_from_model,
+    max_over_model,
+    reduce_from_model,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnConfig
 from repro_torch.models.moe import init_moe, moe_ffn
@@ -169,6 +189,54 @@ def _norm_init(cfg: ModelConfig, gen, dim: int, lead: tuple[int, ...] = ()) -> P
 
 def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings, bf16: on a vocab split over "model" each rank
+    looks up the tokens in its range, zero elsewhere, and the ranks' rows
+    are summed."""
+    table = params["embed"]
+    tp = getattr(params, "tp", None)
+    if tp is None:
+        return table[tokens].to(torch.bfloat16)
+    n = table.shape[0]
+    idx = tokens.long() - tp.rank * n
+    inside = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, 0)
+    return reduce_from_model(rows, tp).to(torch.bfloat16)
+
+
+def _logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ lm_head``: this rank's vocab slice where it is split."""
+    tp = getattr(params, "tp", None)
+    if tp is None:
+        return x @ params["lm_head"]
+    return copy_to_model(x, tp) @ params["lm_head"]
+
+
+def _whole_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ lm_head`` over the whole vocab (the ranks' slices all-gathered
+    where it is split; no gradient then)."""
+    tp = getattr(params, "tp", None)
+    logits = _logits(params, x)
+    return logits if tp is None else gather_from_model(logits, -1, tp)
+
+
+def _split_nll(logits: torch.Tensor, labels: torch.Tensor, tp) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` over the whole vocab from this
+    rank's slice of the f32 logits: the global max by one all-reduce, the
+    sum of exponentials and the gold logit (zero on the ranks whose slice
+    does not hold the label) by another."""
+    n = logits.shape[-1]
+    m = max_over_model(logits.amax(dim=-1), tp)
+    sum_exp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    idx = labels - tp.rank * n
+    inside = (idx >= 0) & (idx < n)
+    gold = torch.take_along_dim(logits, idx.clamp(0, n - 1)[..., None], dim=-1)[..., 0]
+    gold = torch.where(inside, gold, 0.0)
+    sum_exp, gold = reduce_from_model(torch.stack([sum_exp, gold]), tp).unbind(0)
+    return torch.log(sum_exp) + m - gold
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +410,7 @@ def forward(
     ``return_hidden`` (prefill needs only the last position's logits).
     """
     B, S = tokens.shape
-    x = params["embed"][tokens].to(torch.bfloat16)
+    x = _embed(params, tokens)
     n_prefix = 0
     if cfg.frontend == "vision":
         if patches is None:
@@ -398,7 +466,7 @@ def forward(
         x = x[:, n_prefix:]
     if return_hidden:
         return x
-    return x @ params["lm_head"]
+    return _whole_logits(params, x)
 
 
 def _encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -417,17 +485,23 @@ def _encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Ten
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy (labels = tokens shifted by the caller)."""
-    logits = forward(
+    """Mean next-token cross-entropy (labels = tokens shifted by the caller);
+    over the split vocab where ``params`` splits it over "model"."""
+    hidden = forward(
         cfg,
         params,
         batch["tokens"],
         frames=batch.get("frames"),
         patches=batch.get("patches"),
-    ).float()
+        return_hidden=True,
+    )
+    logits = _logits(params, hidden).float()
+    labels = batch["labels"].long()
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        return torch.mean(_split_nll(logits, labels, tp))
     logz = torch.logsumexp(logits, dim=-1)
-    labels = batch["labels"].long()[..., None]
-    gold = torch.take_along_dim(logits, labels, dim=-1)[..., 0]
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
     return torch.mean(logz - gold)
 
 
@@ -443,7 +517,7 @@ def prefill(
     hidden = forward(
         cfg, params, tokens, frames=frames, patches=patches, return_hidden=True
     )
-    return hidden[:, -1:] @ params["lm_head"]
+    return _whole_logits(params, hidden[:, -1:])
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +579,18 @@ def _merge_into(cache: torch.Tensor, new: torch.Tensor, live) -> None:
     cache.copy_(new)
 
 
+def _every_head(q, k, v, kv_split: bool, tp):
+    """The new token's q (and k, v where the kv heads are split too) of
+    every head, from this rank's heads: one all-gather over "model"."""
+    if not kv_split:
+        return gather_from_model(q, 2, tp), k, v
+    h, kv = q.shape[2], k.shape[2]
+    both = gather_from_model(torch.cat([q, k, v], dim=2), 2, tp)
+    both = both.unflatten(2, (tp.size, h + 2 * kv))
+    q, k, v = both.split([h, kv, kv], dim=3)
+    return q.flatten(2, 3), k.flatten(2, 3), v.flatten(2, 3)
+
+
 def _decode_attn(
     p: Params,
     cfg_a: AttnConfig,
@@ -515,6 +601,7 @@ def _decode_attn(
     live: torch.Tensor | None = None,
     ring: bool = False,
     update_cache: bool = True,
+    seq=None,
 ) -> torch.Tensor:
     """Attention of one new token per row against its cache.
 
@@ -526,20 +613,40 @@ def _decode_attn(
     cache as a ring buffer of a local-attention window (slot
     ``cache_len % S``); ``update_cache=False`` reads a frozen cache (cross
     attention over the encoder's KV), which is never written.
+
+    ``seq`` (a ``ModelAxis``): the cache holds this rank's run of the
+    positions, S/width of them: the rank whose run holds a row's slot
+    writes it, and the ranks' partial softmaxes are combined.  Where ``p``
+    splits the heads, the new token's q (and k, v) of every head are
+    all-gathered first (the cache holds every kv head), and the rank keeps
+    its own heads' output for its rows of ``wo``.
     """
     B = x.shape[0]
-    S = k_cache.shape[1]
+    S_l = k_cache.shape[1]
+    lo, S = (seq.rank * S_l, S_l * seq.size) if seq is not None else (0, S_l)
+    tp = getattr(p, "tp", None)
+    cfg_l = cfg_a if tp is None else L.local_heads(p, cfg_a, tp)
     if update_cache:
-        q, k, v = L._project_qkv(p, cfg_a, x, cache_len[:, None])
+        q, k, v = L._project_qkv(p, cfg_l, x, cache_len[:, None])
+        if tp is not None:
+            q, k, v = _every_head(q, k, v, cfg_l.n_kv_heads != cfg_a.n_kv_heads, tp)
         rows = torch.arange(B, device=x.device)
-        slot = (cache_len % S if ring else cache_len).long()
+        slot = (cache_len % S if ring else cache_len).long() - lo
+        own = None
+        if seq is not None:  # the slot lies in this rank's run of positions
+            own = ((slot >= 0) & (slot < S_l))[:, None, None]
+            slot = slot.clamp(0, S_l - 1)
         writes = ((k_cache, k[:, 0]), (v_cache, v[:, 0]))
-        kept = [cache[rows, slot] for cache, _ in writes] if live is not None else []
-        for cache, new in writes:
-            cache[rows, slot] = new.to(cache.dtype)
+        keep = live is not None or own is not None
+        kept = [cache[rows, slot] for cache, _ in writes] if keep else [None, None]
+        for (cache, new), old in zip(writes, kept):
+            new = new.to(cache.dtype)
+            cache[rows, slot] = new if own is None else torch.where(own, new, old)
     else:
-        q = L._project_q(p, cfg_a, x, cache_len[:, None])
-    base = torch.arange(S, device=x.device)[None, :]
+        q = L._project_q(p, cfg_l, x, cache_len[:, None])
+        if tp is not None:
+            q = gather_from_model(q, 2, tp)
+    base = lo + torch.arange(S_l, device=x.device)[None, :]
     length = cache_len[:, None].long()
     if ring:
         # true position of ring slot s: the latest write w <= cache_len with
@@ -557,13 +664,23 @@ def _decode_attn(
     qg = q[:, 0].float().reshape(B, cfg_a.n_kv_heads, rep, cfg_a.head_dim) * scale
     s = torch.einsum("bkrd,bskd->bkrs", qg, k_cache.float())  # (B, KV, rep, S)
     s = torch.where(mask, s, -1e30)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkrs,bskd->bkrd", w, v_cache.float())
+    if seq is None:
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkrs,bskd->bkrd", w, v_cache.float())
+    else:  # log-sum-exp over the ranks' runs: a max, then two sums in one
+        m = max_over_model(s.amax(dim=-1), seq)
+        e = torch.exp(s - m[..., None])
+        pv = torch.einsum("bkrs,bskd->bkrd", e, v_cache.float())
+        part = reduce_from_model(torch.cat([e.sum(-1)[..., None], pv], dim=-1), seq)
+        out = part[..., 1:] / part[..., :1]
     out = out.reshape(B, 1, cfg_a.q_dim).to(x.dtype)
     if update_cache and live is not None:
         for (cache, _), old in zip(writes, kept):
             cache[rows, slot] = torch.where(live[:, None, None], cache[rows, slot], old)
-    return out @ p["wo"]
+    if tp is None:
+        return out @ p["wo"]
+    mine = out[..., tp.rank * cfg_l.q_dim : (tp.rank + 1) * cfg_l.q_dim]
+    return reduce_from_model(mine @ p["wo"], tp)
 
 
 def decode_step(
@@ -581,13 +698,16 @@ def decode_step(
     and returned, so ``logits, cache = decode_step(...)`` reads as in the
     JAX package.
     """
-    x = params["embed"][token].to(torch.bfloat16)  # (B, 1, d)
+    x = _embed(params, token)  # (B, 1, d)
+    seq = getattr(cache, "seq", {})
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
             bp = _block(params["blocks"], i)
             z = _norm(cfg, bp["attn_norm"], x)
             kc, vc = cache["k"][i], cache["v"][i]
-            x = x + _decode_attn(bp["attn"], cfg.attn_cfg, z, kc, vc, cache_len, live)
+            x = x + _decode_attn(
+                bp["attn"], cfg.attn_cfg, z, kc, vc, cache_len, live, seq=seq.get("k")
+            )
             z = _norm(cfg, bp["mlp_norm"], x)
             if cfg.family == "moe":
                 m = bp["moe"]
@@ -603,16 +723,16 @@ def decode_step(
                 _merge_into(c[key], c2[key], live)
             x = x + y[:, None, :]
     elif cfg.family == "hybrid":
-        x = _hybrid_decode(cfg, params, cache, x, cache_len, live)
+        x = _hybrid_decode(cfg, params, cache, x, cache_len, live, seq)
     elif cfg.family == "encdec":
-        x = _encdec_decode(cfg, params, cache, x, cache_len, live)
+        x = _encdec_decode(cfg, params, cache, x, cache_len, live, seq)
     else:
         raise ValueError(cfg.family)
     x = _norm(cfg, params["final_norm"], x)
-    return x @ params["lm_head"], cache
+    return _whole_logits(params, x), cache
 
 
-def _hybrid_sub_decode(cfg, sp, kind, x, cache, ai, ri, cache_len, live):
+def _hybrid_sub_decode(cfg, sp, kind, x, cache, ai, ri, cache_len, live, seq):
     """One hybrid layer: the temporal block (RG-LRU on recurrent layer
     ``ri``, or local attention on ring cache ``ai``), then its MLP."""
     z = _norm(cfg, sp["temporal_norm"], x)
@@ -625,28 +745,31 @@ def _hybrid_sub_decode(cfg, sp, kind, x, cache, ai, ri, cache_len, live):
     else:
         kc, vc = cache["attn_k"][ai], cache["attn_v"][ai]
         a_cfg = cfg.local_attn_cfg
-        x = x + _decode_attn(sp["attn"], a_cfg, z, kc, vc, cache_len, live, ring=True)
+        x = x + _decode_attn(
+            sp["attn"], a_cfg, z, kc, vc, cache_len, live, ring=True, seq=seq
+        )
     return x + L.mlp(sp["mlp"], _norm(cfg, sp["mlp_norm"], x), cfg.mlp_kind)
 
 
-def _hybrid_decode(cfg, params, cache, x, cache_len, live):
+def _hybrid_decode(cfg, params, cache, x, cache_len, live, seq):
     n_super, rem = divmod(cfg.n_layers, len(cfg.pattern))
     ai = ri = 0
+    ring = seq.get("attn_k")
     for s in range(n_super):
         bp = _block(params["blocks"], s)
         for i, kind in enumerate(cfg.pattern):
             x = _hybrid_sub_decode(
-                cfg, bp[f"sub{i}"], kind, x, cache, ai, ri, cache_len, live
+                cfg, bp[f"sub{i}"], kind, x, cache, ai, ri, cache_len, live, ring
             )
             ai, ri = (ai, ri + 1) if kind == "rec" else (ai + 1, ri)
     for t in range(rem):
         sp = params[f"tail{t}"]
-        x = _hybrid_sub_decode(cfg, sp, "rec", x, cache, ai, ri, cache_len, live)
+        x = _hybrid_sub_decode(cfg, sp, "rec", x, cache, ai, ri, cache_len, live, ring)
         ri += 1
     return x
 
 
-def _encdec_decode(cfg, params, cache, x, cache_len, live):
+def _encdec_decode(cfg, params, cache, x, cache_len, live, seq):
     table = params["dec_pos"]
     x = x + table[(cache_len.long() % table.shape[0])][:, None, :].to(x.dtype)
     a_cfg = dataclasses.replace(cfg.attn_cfg, use_rope=False)
@@ -656,10 +779,15 @@ def _encdec_decode(cfg, params, cache, x, cache_len, live):
         bp = _block(params["dec_blocks"], i)
         z = _norm(cfg, bp["attn_norm"], x)
         kc, vc = cache["k"][i], cache["v"][i]
-        x = x + _decode_attn(bp["attn"], a_cfg, z, kc, vc, cache_len, live)
+        x = x + _decode_attn(
+            bp["attn"], a_cfg, z, kc, vc, cache_len, live, seq=seq.get("k")
+        )
         z = _norm(cfg, bp["cross_norm"], x)
         # cross attention: query the (precomputed, frozen) encoder KV
         xk, xv = cache["cross_k"][i], cache["cross_v"][i]
-        x = x + _decode_attn(bp["cross"], x_cfg, z, xk, xv, enc_len, update_cache=False)
+        x = x + _decode_attn(
+            bp["cross"], x_cfg, z, xk, xv, enc_len, update_cache=False,
+            seq=seq.get("cross_k"),
+        )
         x = x + L.mlp(bp["mlp"], _norm(cfg, bp["mlp_norm"], x), cfg.mlp_kind)
     return x

@@ -10,6 +10,15 @@ sort-based (no (T × E × C) one-hot tensor):
    ``C = ceil(T·k/E · capacity_factor)`` are dropped;
 3. scatter token activations into an (E, C, d) buffer, run the expert FFNs
    as one batched einsum, gather back and combine weighted by the gates.
+
+Expert parallelism: where the params dict is a
+``distributed.sharding.SplitParams``, the expert stacks are this rank's
+``E / tp`` experts along "model" and the router is whole.  Every rank
+routes the same tokens (they are replicated along "model"), with the
+capacity of the whole layer; it fills and runs the buffer of its own
+experts only and combines their weighted outputs, and one
+``reduce_from_model`` sums the ranks' combinations.  No all-to-all: no
+token has to move.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.collectives import copy_to_model, reduce_from_model
 from repro_torch.models.layers import dense_init, gelu, normal, silu
 
 Params = dict[str, Any]
@@ -63,10 +73,14 @@ def moe_ffn(
     kind: str = "swiglu",
     capacity_factor: float = 1.25,
 ) -> torch.Tensor:
-    """Apply the MoE FFN.  x: (B, S, d) -> (B, S, d)."""
+    """Apply the MoE FFN.  x: (B, S, d) -> (B, S, d); on this rank's
+    experts where ``p`` is split over "model"."""
     B, S, d = x.shape
     E = p["router"].shape[1]
     T = B * S
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        x = copy_to_model(x, tp)
     xt = x.reshape(T, d)
     dev = x.device
 
@@ -89,11 +103,17 @@ def moe_ffn(
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
 
     keep = pos < cap
+    n_local, local = E, flat_expert
+    if tp is not None:  # this rank's experts: [lo, lo + n_local)
+        n_local = p["up"].shape[0]
+        local = flat_expert - tp.rank * n_local
+        keep = keep & (local >= 0) & (local < n_local)
+        local = local.clamp(0, n_local - 1)
     safe_pos = torch.where(keep, pos, 0)
     # scatter tokens into (E, C, d); dropped assignments add nothing
-    buf = torch.zeros((E, cap, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((n_local, cap, d), dtype=x.dtype, device=dev)
     rows = torch.where(keep[:, None], xt[flat_token], 0).to(x.dtype)
-    buf.index_put_((flat_expert, safe_pos), rows, accumulate=True)
+    buf.index_put_((local, safe_pos), rows, accumulate=True)
 
     # batched expert FFN: (E, C, d) x (E, d, f) -> (E, C, f)
     if "gate" in p:
@@ -106,10 +126,12 @@ def moe_ffn(
     out_buf = torch.einsum("ecf,efd->ecd", h, p["down"])  # (E, C, d)
 
     # gather back and combine
-    picked = torch.where(keep[:, None], out_buf[flat_expert, safe_pos], 0)
+    picked = torch.where(keep[:, None], out_buf[local, safe_pos], 0)
     weighted = picked * flat_gate[:, None].to(picked.dtype)
     out = torch.zeros((T, d), dtype=x.dtype, device=dev)
     out.index_add_(0, flat_token, weighted.to(x.dtype))
+    if tp is not None:
+        out = reduce_from_model(out, tp)
     return out.reshape(B, S, d)
 
 

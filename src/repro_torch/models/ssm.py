@@ -7,6 +7,15 @@ inside each chunk, the chunks' final states carried by a loop over chunks)
 and one step at a time in decode, which carries a (B, H, P, N) f32 state and
 a conv window.  d_inner = expand · d_model in heads of ``head_dim`` (P);
 B/C of state size N are shared across heads (n_groups = 1).
+
+Tensor parallelism: none.  The sharding rules split ``in_proj``'s output
+and the conv's channels evenly over "model", but ``in_proj`` packs z, x,
+B, C and dt into one output (``_split_proj``) and the conv runs over x, B
+and C together, so an even split gives a rank parts of several of them
+and whole heads of none, and B and C are shared by every head.  The SSD
+block's leaves are therefore gathered over "model"
+(``distributed.sharding.model_use``: the block is never lent split) and
+every rank of "model" computes it whole.
 """
 
 from __future__ import annotations

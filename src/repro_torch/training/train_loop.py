@@ -10,12 +10,17 @@ metrics)``:
   the step runs eagerly and partitions itself.  On a mesh that a process
   group backs, params and optimizer state are DTensors placed by their
   specs, each rank holding its shards: the model gathers a layer's
-  leaves whole just before it runs that layer, each rank computes on its
-  shard of the batch, and each gradient is reduce-scattered back to its
-  leaf's shard, averaged over the data axes
-  (``distributed.collectives.gather``).  Tensor-parallel compute is not
-  built: ranks along "model" compute the same batch shard.  On one device
-  without a group the step is the plain one;
+  leaves over the data axes just before it runs that layer (FSDP), each
+  rank computes on its shard of the batch, and each gradient is
+  reduce-scattered back to its leaf's shard, averaged over the data axes
+  (``distributed.collectives.gather``).  Along "model" the ranks divide
+  the work (tensor parallelism, ``distributed.sharding.lend_params``):
+  each keeps its slices of the heads, ff columns, vocab, experts and lru
+  channels and computes its share of every layer on the same batch
+  shard; only the leaves of a layer that cannot compute on its split
+  (the SSD block, attention whose heads the width does not divide) are
+  gathered over "model" too.  On one device without a group the step is
+  the plain one;
 * :func:`make_dp_train_step` — explicit data parallelism over the data
   axes of the mesh, with gradient compression (int8 / top-k with error
   feedback) on the cross-replica mean, level by level: over "data", then
@@ -54,6 +59,7 @@ from repro_torch.distributed.sharding import (
     spec_axes,
 )
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models.layers import on_each_leaf
 from repro_torch.models.model import ModelConfig, init_params, loss_fn
 from repro_torch.training.optimizer import (
     OptConfig,
@@ -145,7 +151,12 @@ def _data_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def sharded_norm(grads: Any, shardings: Any, mesh: Mesh) -> torch.Tensor:
     """The global norm of a gradient held as local shards: each rank's
     squares of a leaf over the number of ranks that hold the same shard,
-    summed over every rank, so that each element counts once."""
+    summed over every rank, so that each element counts once.  The ranks
+    that hold one shard hold the same gradient of it: reduced over the
+    data axes, and along "model" either this rank's slice's alone or,
+    for a leaf whole along "model", equal on every rank (the activations'
+    gradients are all-reduced where they leave a split product,
+    ``collectives.copy_to_model``)."""
     sizes = mesh.axis_sizes
 
     def part(g, sh):
@@ -166,7 +177,7 @@ def sharded_step_fn(
     (``launch.steps``) runs it on meta shards."""
 
     def fn(params, opt_state, batch):
-        lend = lambda live: lend_params(live, shardings)  # noqa: E731
+        lend = lambda live: lend_params(live, shardings, cfg)  # noqa: E731
         loss, grads = loss_and_grads(cfg, params, batch, train.microbatches, lend=lend)
         loss = _data_mean(loss, mesh)
         gnorm = sharded_norm(grads, shardings, mesh)
@@ -254,14 +265,34 @@ def opt_shardings(params_tree, mesh: Mesh, rules: MeshRules = FSDP_TP) -> dict:
     return {"master": sh, "m": sh, "v": sh, "step": NamedSharding(mesh, ())}
 
 
+def init_params_sharded(
+    cfg: ModelConfig, mesh: Mesh, seed: int = 0, rules: MeshRules = FSDP_TP
+) -> Any:
+    """``init_params(cfg, seed)`` placed on ``mesh`` leaf by leaf: each rank
+    draws one leaf whole (the same numbers everywhere, from the same
+    generator in the same order), keeps its shard and frees the whole
+    before drawing the next, so a rank's peak is its shards plus the
+    largest leaf.  The shards are those of the whole tree placed at once,
+    bit for bit."""
+    drawn: list = []
+    with on_each_leaf(lambda t: drawn.append(t) or t):
+        shapes = init_params(cfg, device="meta")
+    order = {id(t): i for i, t in enumerate(drawn)}
+    shardings = [None] * len(drawn)
+    for t, sh in zip(leaves(shapes), leaves(params_shardings(shapes, mesh, rules))):
+        shardings[order[id(t)]] = sh
+    todo = iter(shardings)
+    with on_each_leaf(lambda t: next(todo).place(t)):
+        return init_params(cfg, seed, device=mesh.local_device)
+
+
 def init_sharded(
     cfg: ModelConfig, mesh: Mesh, seed: int = 0, rules: MeshRules = FSDP_TP
 ) -> tuple[Any, Any]:
-    """Params and optimizer state drawn and placed on ``mesh``: each rank
-    draws the params whole (the same numbers everywhere) and keeps its
+    """Params and optimizer state drawn and placed on ``mesh``: the params
+    leaf by leaf (``init_params_sharded``), the state from the placed
     shards."""
-    params = init_params(cfg, seed, device=mesh.local_device)
-    params = place(params, params_shardings(params, mesh, rules))
+    params = init_params_sharded(cfg, mesh, seed, rules)
     opt_state = init_opt_state(params)
     return params, place(opt_state, opt_shardings(params, mesh, rules))
 

@@ -442,9 +442,12 @@ def test_partition_on_one_device_has_no_collectives():
 def test_partition_all_gathers_scale_with_layers(cell):
     """On a (data=2, model=2) meta mesh in a fake group: the all-gathers
     grow by the same count with every layer added (the stacked leaves are
-    gathered a layer at a time, twice in a train step: forward and remat),
-    a train step reduce-scatters as many as it gathers in its forward, and
-    the rank's temp bytes are positive."""
+    gathered over "data" a layer at a time, twice in a train step: forward
+    and remat; a decode step also gathers each layer's new q, k and v over
+    "model"), a train step reduce-scatters as many as it gathers in its
+    forward, the all-reduces of the tensor-parallel layers (over "model")
+    grow by the same count with every layer added too, and the rank's temp
+    bytes are positive."""
     from repro_torch.launch.mesh import _mesh
     from repro_torch.launch.steps import build_lowerable
 
@@ -455,6 +458,8 @@ def test_partition_all_gathers_scale_with_layers(cell):
     ]
     gathers = [p.collectives["all-gather"][0] for p in parts]
     assert gathers[2] - gathers[1] == gathers[1] - gathers[0] > 0, gathers
+    reduces = [p.collectives["all-reduce"][0] for p in parts]
+    assert reduces[2] - reduces[1] == reduces[1] - reduces[0] > 0, reduces
     for p in parts:
         assert p.temp_bytes > 0
         assert p.collective_bytes == sum(b for _, b in p.collectives.values())
