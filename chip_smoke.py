@@ -71,19 +71,25 @@ check:
    Placement: a one-rank NCCL process group (``init_distributed``, as
    ``torchrun`` starts one) and ``make_host_mesh()`` over it; llama3.2-3b
    at full width trains the train phase's steps through the sharded step
-   (DTensor state; each layer's leaves gathered over "data" and computed
-   on their split along "model", each gradient reduce-scattered back over
-   NCCL), its losses within 3e-2 of the train phase's (bit-equality
-   printed), host ms a step beside the one-device step's, NCCL kernels a
+   (DTensor state; each layer's leaves gathered over the axes of more
+   than one rank and computed on their split along "model", each
+   gradient reduce-scattered back), its losses within 3e-2 of the train
+   phase's, host ms a step beside the one-device step's, NCCL kernels a
    step (``torch.profiler``), resident and peak memory; the trained
    params then decode 8 greedy tokens of 4 rows on a 128-token cache
    through ``launch.steps.sharded_decode_fn`` (the cache's KV sequence
    split over "model") against the one-device ``decode_step``, logits
    within 3e-2 and the greedy tokens equal (where they differ, the
-   one-device top-2 margin must lie within twice the bf16 band); at
-   smoke size a checkpoint of the sharded state round-trips bit for bit
-   and one int8 ``make_dp_train_step`` step runs.  No partitioned-GEMM
-   kernel is launched, and the phase fits in 90 s.
+   one-device top-2 margin must lie within twice the bf16 band), then one
+   more step profiled (NCCL kernels, and the port's collectives by mesh
+   axis).  At one rank nothing is issued over an axis of one, so the
+   profiled train step and decode step must launch no NCCL kernel, the
+   losses must equal the train phase's and the decode logits the
+   one-device ones bit for bit.  At smoke size a checkpoint of the
+   sharded state round-trips bit for bit and one int8
+   ``make_dp_train_step`` step runs.  The card's name and power limit
+   are logged with the numbers.  No partitioned-GEMM kernel is launched,
+   and the phase fits in 90 s.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -301,13 +307,18 @@ def check(ok, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def environment(torch, build) -> str:
-    card = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True,
         text=True,
         check=True,
     ).stdout.strip()
+
+
+def environment(torch, build) -> str:
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     nvcc = subprocess.run(
@@ -1373,10 +1384,13 @@ def _free_port() -> int:
 
 def placement_train(torch, mesh, train: dict) -> dict:
     """llama3.2-3b at full width and depth through the sharded step on
-    ``mesh``: params and AdamW state DTensors, each layer gathered whole
-    for use and each gradient reduce-scattered back (NCCL collectives over
-    the one rank); the train phase's seed, batches and steps, so the
-    losses must equal its losses within ``BF16_TOL``."""
+    ``mesh``: params and AdamW state DTensors, each layer's leaves
+    gathered over the axes of more than one rank and computed on their
+    split over "model"; the train phase's seed, batches and steps, so the
+    losses must equal its losses within ``BF16_TOL``.  On one rank nothing
+    is issued (``distributed.collectives``: no axis of one is gathered
+    over, no "model" axis of one is lent), so the profiled step launches
+    no NCCL kernel and the losses are the train phase's bit for bit."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get
@@ -1444,6 +1458,9 @@ def placement_train(torch, mesh, train: dict) -> dict:
     errs = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
     what = f"placement losses {losses} vs train {train['losses']}"
     check(max(errs) <= BF16_TOL, what)
+    if mesh.size == 1:
+        check(rows[-1]["nccl_kernels"] == 0, f"placement at one rank: {rows[-1]}")
+        check(losses == train["losses"], f"not bit-equal at one rank: {what}")
     stats = {
         "init_s": init_s,
         "resident_bytes": resident,
@@ -1468,21 +1485,21 @@ def placement_train(torch, mesh, train: dict) -> dict:
     return stats
 
 
-def _greedy(torch, fn, rows: slice, n: int, vocab: int) -> tuple[list, list, float]:
+def _greedy(torch, fn, rows: slice, n: int, vocab: int) -> tuple[list, list, list]:
     """``n`` greedy decode steps of ``fn(token, cache_len) -> logits`` from
     seeded prompt tokens (this rank's ``rows`` of them): the logits and
-    tokens of each step, and the steps' host ms in all."""
+    tokens of each step, and each step's host ms."""
     gen = torch.Generator().manual_seed(SEED)
     tok = torch.randint(0, vocab, (PLACEMENT_DECODE[0], 1), generator=gen)[rows].cuda()
     lens = torch.zeros(tok.shape[0], dtype=torch.int32, device=tok.device)
-    logits, tokens, ms = [], [], 0.0
+    logits, tokens, ms = [], [], []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg = fn(tok, lens)
         tok = lg[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
-        ms += (time.perf_counter() - t0) * 1e3
+        ms.append((time.perf_counter() - t0) * 1e3)
         logits.append(lg.float())
         tokens.append(tok)
         lens = lens + 1
@@ -1524,13 +1541,36 @@ def _same_greedy(torch, got, got_tok, ref, ref_tok, rows) -> tuple[list, int, in
     return errs, equal, flips
 
 
+def _profiled_decode(torch, mesh, step) -> tuple[int, dict]:
+    """One more decode step under the profiler and the port's collective
+    log: its NCCL kernels, and its collectives by the mesh axis they run
+    over (``{axis: calls}``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.collectives import count_collectives
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with count_collectives() as log:
+            step()
+        torch.cuda.synchronize()
+    nccl = sum(
+        e.count
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "nccl" in e.key.lower()
+    )
+    return nccl, log.by_axis(mesh)
+
+
 def placement_decode(torch, cfg, mesh, params) -> dict:
     """``cfg`` at full width through ``launch.steps.sharded_decode_fn`` on
     ``mesh`` (the heads, ff columns and vocab split over "model", the
     cache's rows over "data" and its KV sequence over "model"):
     ``PLACEMENT_DECODE`` greedy tokens against the one-device
     ``decode_step`` on the whole params, every step's logits within
-    ``BF16_TOL`` and the greedy tokens equal (``_same_greedy``)."""
+    ``BF16_TOL`` and the greedy tokens equal (``_same_greedy``); on one
+    rank the logits bit for bit, and one more step, profiled, launches no
+    NCCL kernel."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch._tree import tree_map
@@ -1554,6 +1594,10 @@ def placement_decode(torch, cfg, mesh, params) -> dict:
         got, got_tok, ms = _greedy(
             torch, lambda t, c: fn(local, local_c, t, c)[0], rows, n, cfg.vocab
         )
+        lens = torch.full((got_tok[-1].shape[0],), n, dtype=torch.int32, device="cuda")
+        nccl, by_axis = _profiled_decode(
+            torch, mesh, lambda: fn(local, local_c, got_tok[-1], lens)
+        )
         del local_c
         whole = tree_map(
             lambda t: t.full_tensor() if isinstance(t, DTensor) else t, params
@@ -1567,15 +1611,25 @@ def placement_decode(torch, cfg, mesh, params) -> dict:
         )
         del whole, cache
     errs, equal, flips = _same_greedy(torch, got, got_tok, ref, ref_tok, rows)
+    bit_equal = all(torch.equal(a, b[rows]) for a, b in zip(got, ref))
+    if mesh.size == 1:
+        check(bit_equal, f"sharded decode logits at one rank differ: {errs}")
+        check(nccl == 0, f"sharded decode at one rank launched {nccl} NCCL kernels")
     return {
+        "decode_logits_bit_equal": bit_equal,
+        "decode_nccl_kernels_a_step": nccl,
+        "decode_collectives_a_step": by_axis,
         "decode_tokens": n,
         "decode_rows": n_rows,
         "decode_max_rel_err": max(errs),
         "decode_greedy_equal": equal,
         "decode_greedy_flips_at_a_tie": flips,
-        "decode_ms_a_step": ms / n,
-        "decode_tokens_per_s": n_rows * n / ms * 1e3,
-        "one_device_decode_ms_a_step": one_ms / n,
+        "decode_ms_a_step": sum(ms) / n,
+        "decode_tokens_per_s": n_rows * n / sum(ms) * 1e3,
+        "one_device_decode_ms_a_step": sum(one_ms) / n,
+        # the first step of either run warms what the train step did not
+        "decode_ms_median_after_first": statistics.median(ms[1:]),
+        "one_device_decode_ms_median_after_first": statistics.median(one_ms[1:]),
     }
 
 
@@ -1629,8 +1683,8 @@ def moe_whole(torch, mesh) -> dict:
         "init_s": init_s,
         "resident_bytes": resident,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "decode_ms_a_step": ms / n,
-        "tokens_per_s": n_rows * n / ms * 1e3,
+        "decode_ms_a_step": sum(ms) / n,
+        "tokens_per_s": n_rows * n / sum(ms) * 1e3,
     }
     del params, local, local_c, logits
     gc.collect()
@@ -1731,6 +1785,7 @@ def placement_phase(torch, K, train: dict) -> dict:
         )
         stats = placement_train(torch, mesh, train)
         stats.update(placement_smoke(torch, mesh))
+        stats["card"] = card_line()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1828,12 +1883,7 @@ def placement_only(argv: list) -> int:
         check(sum(launches.values()) == 0, f"placement launched: {launches}")
         dist.barrier()
         if rank == 0:
-            card = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                capture_output=True,
-                text=True,
-                check=True,
-            ).stdout.strip()
+            card = card_line()
             log(f"placement-only: {json.dumps(stats)}; {launches}")
             print(card)
             print(json.dumps({"ok": True, "placement_only": stats["mesh"]}), flush=True)

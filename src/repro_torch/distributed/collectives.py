@@ -26,8 +26,15 @@ the compiled step.  Here the sharded train step
   :func:`all_to_all_` — one collective each, counted in the log that
   :func:`count_collectives` opens (kinds and wire bytes as
   ``launch.hlo_analysis`` counts XLA's: ring algorithms, an all-reduce
-  moves its tensor twice).  On a "model" axis of one rank the
-  tensor-parallel functions issue none: there is nothing to reduce.
+  moves its tensor twice; the log's ``groups`` counts them by kind and
+  the process group they run over).
+
+Nothing is issued over a mesh axis of one rank, as GSPMD issues nothing
+there: ``distributed.sharding.gather_plan`` leaves such axes out of a
+plan, a plan with nothing to gather or reduce lends the shard itself
+(:func:`gather`), and a "model" axis of one is never lent
+(``sharding.model_axis``), so the tensor-parallel functions are not
+reached at width 1.
 """
 
 from __future__ import annotations
@@ -52,12 +59,34 @@ _scatter_single = (
 )
 
 
+class CollectiveLog(dict):
+    """``{kind: [calls, wire bytes]}``, and in ``groups`` ``{(kind, process
+    group): calls}``."""
+
+    def __init__(self):
+        super().__init__()
+        self.groups: dict = {}
+
+    def by_axis(self, mesh, kinds=None) -> dict[str, int]:
+        """The calls (of ``kinds``, or all) by the axis of ``mesh`` whose
+        process group they ran over: "world" for the whole group where no
+        axis spans it, "?" for another group."""
+        names = {mesh.group(a): a for a in mesh.axis_names}
+        names.setdefault(dist.group.WORLD, "world")
+        out: dict[str, int] = {}
+        for (kind, group), calls in self.groups.items():
+            if kinds is None or kind in kinds:
+                axis = names.get(group, "?")
+                out[axis] = out.get(axis, 0) + calls
+        return out
+
+
 @contextlib.contextmanager
 def count_collectives():
     """Count every collective the port issues inside the block, backward
-    passes included: yields ``{kind: [calls, wire bytes]}``, filled as
-    they run."""
-    log: dict[str, list[int]] = {}
+    passes included: yields a :class:`CollectiveLog`, filled as they
+    run."""
+    log = CollectiveLog()
     token = _LOG.set(log)
     try:
         yield log
@@ -65,13 +94,15 @@ def count_collectives():
         _LOG.reset(token)
 
 
-def _record(log, kind: str, t: torch.Tensor) -> None:
-    """Count one call in ``log``, or in the calling context's log."""
+def _record(log, kind: str, t: torch.Tensor, group) -> None:
+    """Count one call over ``group`` in ``log``, or in the calling
+    context's log."""
     log = _LOG.get() if log is None else log
     if log is not None:
         entry = log.setdefault(kind, [0, 0])
         entry[0] += 1
         entry[1] += t.numel() * t.element_size() * _WIRE[kind]
+        log.groups[kind, group] = log.groups.get((kind, group), 0) + 1
 
 
 def all_gather(t: torch.Tensor, dim: int, group, log=None) -> torch.Tensor:
@@ -82,7 +113,7 @@ def all_gather(t: torch.Tensor, dim: int, group, log=None) -> torch.Tensor:
     src = t.contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _gather_single(out, src, group=group)
-    _record(log, "all-gather", out)
+    _record(log, "all-gather", out, group)
     if dim == 0 or n == 1:
         return out
     return torch.cat(out.view((n,) + tuple(src.shape)).unbind(0), dim=dim)
@@ -102,7 +133,7 @@ def reduce_scatter(t: torch.Tensor, dim: int, group, log=None) -> torch.Tensor:
         src = src.movedim(dim, 0).reshape((n * part[0],) + part[1:])
     out = src.new_empty(part)
     _scatter_single(out, src, op=dist.ReduceOp.SUM, group=group)
-    _record(log, "reduce-scatter", src)
+    _record(log, "reduce-scatter", src, group)
     return out
 
 
@@ -111,7 +142,7 @@ def all_reduce_(
 ) -> torch.Tensor:
     """``t`` summed (or reduced by ``op``) over ``group``, in place."""
     dist.all_reduce(t, op=op, group=group)
-    _record(log, "all-reduce", t)
+    _record(log, "all-reduce", t, group)
     return t
 
 
@@ -119,7 +150,7 @@ def all_to_all_(out: torch.Tensor, t: torch.Tensor, group, log=None) -> None:
     """Chunk ``r`` of ``t`` (dim 0) to rank ``r``; chunk ``r`` of ``out``
     from rank ``r``."""
     dist.all_to_all_single(out, t, group=group)
-    _record(log, "all-to-all", t)
+    _record(log, "all-to-all", t, group)
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +201,10 @@ class _Gather(torch.autograd.Function):
 def gather(local: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
     """The whole leaf from this rank's shard ``local``; under autograd its
     gradient is reduce-scattered back to the shard and averaged over the
-    data replicas, summed in f32."""
+    data replicas, summed in f32.  A plan with nothing to gather or reduce
+    (every axis it would name has one rank) lends ``local`` itself."""
+    if not plan.gather and not plan.reduce:
+        return local
     return _Gather.apply(local, plan)
 
 

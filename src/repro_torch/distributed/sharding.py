@@ -21,17 +21,21 @@ the mesh.  On one device without a group it is ``.to(device)``.
 
 For use, a sharded leaf is gathered over the data axes
 (``distributed.collectives``, FSDP) and, over "model", only where the
-layer that reads it cannot compute on its split (:func:`model_use`): the
-attention heads, the ff columns, the vocab and the experts stay this
-rank's slices along "model", and their layers compute on them
-(tensor parallelism; ``models.layers``, ``models.moe``,
-``models.rglru``, ``models.model``).  :func:`gather_plan` says over which
-axes' groups a leaf is gathered and how its gradient is reduced, and
-:func:`lend_params` gives the model a tree of local shards that it
-gathers as it reads them, one layer at a time for the stacked blocks
-(:class:`ShardedStack`).  A layer dict whose leaves are left split is a
-:class:`SplitParams`, which carries the "model" axis (its width and this
-rank's place on it); the layer reads it there, never the mesh.
+layer that reads it cannot compute on its slice (:func:`model_use`): the
+attention heads, the ff columns, the vocab, the experts, the lru channels
+and the SSD heads are computed split over "model", each rank on its share
+(tensor parallelism; ``models.layers``, ``models.moe``, ``models.rglru``,
+``models.ssm``, ``models.model``), and a leaf whose even cut does not
+fall on the rank's share is gathered and read in parts.  As GSPMD, the
+port issues nothing over an axis of one rank: :func:`gather_plan` leaves
+such axes out, and at a "model" width of one nothing is lent split.
+:func:`gather_plan` says over which axes' groups a leaf is gathered and
+how its gradient is reduced, and :func:`lend_params` gives the model a
+tree of local shards that it gathers as it reads them, one layer at a
+time for the stacked blocks (:class:`ShardedStack`).  A layer dict whose
+leaves are computed on their split is a :class:`SplitParams`, which
+carries the "model" axis (its width and this rank's place on it); the
+layer reads it there, never the mesh.
 
 Batches shard their dim 0 over ("pod", "data"); decode caches shard the
 batch over the data axes and the KV sequence over "model".
@@ -352,38 +356,51 @@ _KV = ("wk", "wv", "bk", "bv")
 _LAYER_KEYS = (*_SPLIT_DIMS, "ssd")
 
 
-def _layer_splits(key: str, shs: dict, cfg: ModelConfig, tp: int) -> bool:
-    """Whether the layer dict ``key`` computes on its leaves' split over
+def _layer_splits(key: str, shs: dict) -> bool:
+    """Whether the layer dict ``key`` computes its share of the work along
     "model": every leaf of ``_SPLIT_DIMS`` split on its dim (the rglru's
-    conv too), and for attention the heads divisible by the width.  The
-    SSD block never does: Mamba2's packed ``in_proj`` (z, x, B, C, dt in
-    one output) and its conv do not split evenly along what they pack
-    (``models.ssm``), so it is gathered over "model" and runs whole."""
+    conv too).  Mamba2's SSD block always does: each rank takes its run of
+    the SSD heads (``models.ssm``), reading the leaves whose even cut
+    straddles what they pack in parts (:func:`model_use`)."""
+    if key == "ssd":
+        return True
     dims = _SPLIT_DIMS.get(key)
     if dims is None:
         return False
     if not all(_on_model(shs[n], d) for n, d in dims.items() if n in shs):
         return False
-    if key in ("attn", "cross"):
-        return cfg.n_heads % tp == 0
     if key == "rglru":
         return all(_on_model(sh, -1) for sh in shs["conv"].values())
     return True
 
 
 def model_use(
-    name: str, sh: NamedSharding, cfg: ModelConfig, tp: int, layer: str | None
+    name: str,
+    sh: NamedSharding,
+    cfg: ModelConfig,
+    tp: int,
+    layer: str | None,
+    decode: bool = False,
 ) -> str:
     """How the layer reads leaf ``name`` (in layer dict ``layer``, None
-    outside one) along "model", ``tp`` wide:
+    outside one) along "model", ``tp`` wide, in the decode step
+    (``decode``) or the full-sequence paths:
 
     * ``"split"`` — it computes on this rank's slice: no gather over
       "model", and the slice's gradient is this rank's alone;
     * ``"part"`` — it gathers the leaf whole (where split) and reads the
-      part its rank's share of the work needs (the kv heads of the rank's
-      query heads where the kv heads do not divide; the router, whose
-      gates reach only the rank's experts' outputs): the ranks' gradients
-      are partial sums, summed over "model";
+      part its rank's share of the work needs: the ranks' gradients are
+      partial sums, summed over "model".  So are read the router (its
+      gates reach only the rank's experts' outputs); the SSD block but
+      ``out_proj`` (the even cut of the packed ``in_proj`` and the conv
+      straddles z, x, B, C and dt; each rank reads its heads' z, x and dt
+      and the shared B and C, ``models.ssm``); attention's weights where
+      the width does not divide the heads (each rank its run of whole
+      heads, ``models.layers.head_run``) and its kv projection where the
+      kv heads do not divide (the kv heads of the rank's query heads).
+      In decode, attention computes on the placed columns wherever the
+      heads do not divide, fractions of a head included
+      (``models.layers.project_on_columns``);
     * ``"whole"`` — every rank of "model" computes the same on the whole
       leaf: gathered over "model" where split, and the gradients, equal on
       every rank, are summed and divided by the width.
@@ -391,10 +408,16 @@ def model_use(
     if layer is None:  # the vocab tables
         dim = {"embed": 0, "lm_head": -1}.get(name)
         return "split" if dim is not None and _on_model(sh, dim) else "whole"
-    if name in _KV and layer in ("attn", "cross"):
-        if _on_model(sh, -1) and cfg.n_kv_heads % tp == 0:
-            return "split"
-        return "part"
+    if layer in ("attn", "cross"):
+        heads = cfg.n_heads % tp == 0
+        if name not in _KV:
+            return "split" if heads or decode else "part"
+        kv = cfg.n_kv_heads % tp == 0
+        on = _on_model(sh, -1) and (kv if heads else decode)
+        return "split" if on else "part"
+    if layer == "ssd":  # out_proj's even cut of rows is whole heads
+        rows = name == "out_proj" and _on_model(sh, -2)
+        return "split" if rows and cfg.ssm_cfg.n_heads % tp == 0 else "part"
     if name == "router":
         return "part"
     return "split"
@@ -402,10 +425,12 @@ def model_use(
 
 def gather_plan(sh: NamedSharding, skip: int = 0, use: str = "whole") -> GatherPlan:
     """How a leaf placed by ``sh`` is gathered for use and its gradient
-    reduced back (``collectives.GatherPlan``): over every axis its spec
-    names but "model" where the layer computes on the split (``use``, see
-    :func:`model_use`); ``skip`` drops that many leading dims of the spec
-    (1 for a layer of a stacked leaf, whose layer dim no rule shards)."""
+    reduced back (``collectives.GatherPlan``): over every axis of more
+    than one rank that its spec names but "model" where the layer computes
+    on the split (``use``, see :func:`model_use`); ``skip`` drops that many
+    leading dims of the spec (1 for a layer of a stacked leaf, whose layer
+    dim no rule shards).  An axis of one rank is named nowhere in the plan
+    and counts in no scale."""
     mesh = sh.mesh
     sizes = mesh.axis_sizes
     entries = [sh._entry(i) for i in range(len(sh.spec))]
@@ -414,16 +439,17 @@ def gather_plan(sh: NamedSharding, skip: int = 0, use: str = "whole") -> GatherP
     steps, named = [], set()
     for i, entry in enumerate(entries[skip:]):
         for a in reversed(spec_axes(entry)):  # the minor axis first
-            if a == "model" and use == "split":
+            if sizes[a] == 1 or (a == "model" and use == "split"):
                 continue
             steps.append((i, mesh.group(a)))
             named.add(a)
-    data = batch_axes(mesh)
+    data = [a for a in batch_axes(mesh) if sizes[a] > 1]
     reduce = [mesh.group(a) for a in data if a not in named]
-    if use == "part" and "model" in sizes and "model" not in named:
+    part = use == "part" and sizes.get("model", 1) > 1
+    if part and "model" not in named:
         reduce.append(mesh.group("model"))  # replicated, read in parts
     replicas = int(np.prod([sizes[a] for a in data]))
-    same = [a for a in named if a not in data and not (a == "model" and use == "part")]
+    same = [a for a in named if a not in data and not (a == "model" and part)]
     copies = int(np.prod([sizes[a] for a in same]))
     return GatherPlan(
         gather=tuple(steps), reduce=tuple(reduce), scale=1.0 / (replicas * copies)
@@ -443,14 +469,15 @@ class SplitParams(dict):
 
 def model_axis(mesh: Mesh) -> ModelAxis | None:
     """This rank's line along "model" where a process group backs the
-    mesh and it has that axis, else None."""
-    if mesh.device_mesh is None or "model" not in mesh.axis_names:
+    mesh and that axis has more than one rank, else None (nothing is lent
+    split, and no layer issues a tensor-parallel collective)."""
+    if mesh.device_mesh is None or mesh.axis_sizes.get("model", 1) == 1:
         return None
     rank = mesh.device_mesh.get_local_rank("model")
     return ModelAxis(mesh.axis_sizes["model"], rank, mesh.group("model"))
 
 
-def _plans(shardings: dict, cfg: ModelConfig, skip: int, path=()):
+def _plans(shardings: dict, cfg: ModelConfig, skip: int, path=(), decode=False):
     """(the ``GatherPlan`` tree of a params subtree, the paths of its layer
     dicts that compute on their split)."""
     mesh = leaves(shardings)[0].mesh
@@ -461,9 +488,10 @@ def _plans(shardings: dict, cfg: ModelConfig, skip: int, path=()):
         if not isinstance(shs, dict):
             if layer and not on:
                 return gather_plan(shs, skip, "whole")
-            return gather_plan(shs, skip, model_use(path[-1], shs, cfg, tp, layer))
+            use = model_use(path[-1], shs, cfg, tp, layer, decode)
+            return gather_plan(shs, skip, use)
         if path and path[-1] in _LAYER_KEYS:
-            layer, on = path[-1], _layer_splits(path[-1], shs, cfg, tp)
+            layer, on = path[-1], _layer_splits(path[-1], shs)
             if on:
                 split.add(path)
         return {k: walk(v, path + (k,), layer, on) for k, v in shs.items()}
@@ -473,11 +501,11 @@ def _plans(shardings: dict, cfg: ModelConfig, skip: int, path=()):
 
 def _lent(tree, plans, split, tp, path=()):
     """``tree`` of local shards gathered by ``plans``; the dicts at
-    ``split`` a :class:`SplitParams` of ``tp``."""
+    ``split`` a :class:`SplitParams` of ``tp`` (where it is not None)."""
     if not isinstance(tree, dict):
         return gather(tree, plans)
     out = {k: _lent(v, plans[k], split, tp, path + (k,)) for k, v in tree.items()}
-    return SplitParams(out, tp) if path in split else out
+    return SplitParams(out, tp) if tp is not None and path in split else out
 
 
 class ShardedStack(dict):
@@ -485,29 +513,31 @@ class ShardedStack(dict):
     layer through ``gather_layer``, which gathers that layer's leaves for
     use (inside the layer's rematerialised body: the backward gathers
     again instead of keeping them), its split layers' dicts
-    :class:`SplitParams`."""
+    :class:`SplitParams`; ``decode``: as :func:`lend_params`."""
 
-    def __init__(self, local: dict, shardings: dict, cfg: ModelConfig):
+    def __init__(self, local: dict, shardings: dict, cfg: ModelConfig, decode=False):
         super().__init__(local)
-        self.plans, self.split = _plans(shardings, cfg, skip=1)
+        self.plans, self.split = _plans(shardings, cfg, skip=1, decode=decode)
         self.tp = model_axis(leaves(shardings)[0].mesh)
 
     def gather_layer(self, layer: dict) -> dict:
         return _lent(layer, self.plans, self.split, self.tp)
 
 
-def lend_params(local, shardings, cfg: ModelConfig) -> dict:
+def lend_params(local, shardings, cfg: ModelConfig, decode: bool = False) -> dict:
     """The params tree the model reads, from local shards: each stacked
     subtree a :class:`ShardedStack`, every other leaf gathered for use now
     (once a forward pass); the whole tree a :class:`SplitParams` where the
-    vocab tables are split over "model"."""
+    vocab tables are split over "model".  ``decode``: lent to
+    ``models.model.decode_step``, whose attention projects on the placed
+    columns (:func:`model_use`)."""
     out = {}
     tp = model_axis(leaves(shardings)[0].mesh)
     for k, v in local.items():
         if k.startswith(_STACKED_PREFIXES):
-            out[k] = ShardedStack(v, shardings[k], cfg)
+            out[k] = ShardedStack(v, shardings[k], cfg, decode)
             continue
-        plans, split = _plans(shardings[k], cfg, skip=0, path=(k,))
+        plans, split = _plans(shardings[k], cfg, skip=0, path=(k,), decode=decode)
         out[k] = _lent(v, plans, split, tp, (k,))
     vocab = all(
         model_use(k, shardings[k], cfg, 1, None) == "split"

@@ -21,14 +21,18 @@ keeps the JAX package's keys:
   bytes beyond the arguments) — from a second run of the step as rank 0
   of the mesh runs it, in a fake process group of the mesh's size
   (``launch.steps.Lowerable.partition``): each layer's leaves gathered
-  over the data axes, the heads, ff columns, vocab, experts and lru
-  channels computed split over "model", the decode cache split over its
-  batch and KV sequence as ``arg_bytes`` counts it.  The port partitions
-  by its own rules, not GSPMD's (the SSD block and attention whose heads
-  "model" does not divide run whole on every rank of "model"), so these
-  are the port's numbers, not XLA's; a train cell whose batch shard is
-  smaller than the microbatch count accumulates over as many
-  microbatches as the shard allows;
+  over the data axes, the heads, ff columns, vocab, experts, lru
+  channels and SSD heads computed split over "model", nothing issued
+  over an axis of one rank, the decode cache split over its batch and KV
+  sequence as ``arg_bytes`` counts it.  The port partitions by its own
+  rules, not GSPMD's (where "model" does not divide the attention heads,
+  the full-sequence steps give a rank its run of whole heads from the
+  gathered weights), so these are the port's numbers, not XLA's; a train
+  cell whose batch shard is smaller than the microbatch count
+  accumulates over as many microbatches as the shard allows.  The
+  printed line adds that run's matrix-product FLOPs (``rank_flops``),
+  the rank's share of the work, which the record does not keep (its keys
+  are the JAX package's);
 * ``bytes_per_device``, ``flops_xla_raw``, ``bytes_xla_raw``,
   ``transcendentals`` — only a compiler can give these: ``null``, never
   an estimate.
@@ -137,6 +141,7 @@ def main(argv=None) -> int:
                     )
                     lowered = low.lower()
                     part = low.partition()
+                    rank_flops = part.flops
                     rec = {
                         "arch": arch_id,
                         "cell": cell_name,
@@ -160,7 +165,8 @@ def main(argv=None) -> int:
                             f"args={rec['arg_bytes'] / 1e9:.2f}GB "
                             f"out={rec['out_bytes'] / 1e9:.2f}GB "
                             f"temp={rec['temp_bytes'] / 1e9:.2f}GB "
-                            f"coll={rec['collective_bytes'] / 1e9:.2f}GB",
+                            f"coll={rec['collective_bytes'] / 1e9:.2f}GB "
+                            f"rank_flops={rank_flops:.4g}",
                             flush=True,
                         )
                 except Exception as e:  # noqa: BLE001 — record and continue

@@ -27,13 +27,15 @@ its arguments (``torch.distributed._tools.mem_tracker.MemTracker``).  The
 rank runs the cell's step as :func:`sharded_prefill_fn`,
 :func:`sharded_decode_fn` and ``training.train_loop.sharded_step_fn``
 run it on real tensors over gloo or NCCL: each layer's leaves gathered
-over the data axes (FSDP), the heads, ff columns, vocab, experts and lru
-channels computed split over "model" (tensor parallelism), and the decode
-cache split as ``cache_shardings`` says (batch over the data axes, KV
-sequence over "model").  The port partitions by its own rules, not
-GSPMD's (the SSD block and attention whose heads "model" does not divide
-run whole on every rank of "model"), so its counts are its own, not
-XLA's.
+over the data axes (FSDP), the heads, ff columns, vocab, experts, lru
+channels and SSD heads computed split over "model" (tensor parallelism),
+and the decode cache split as ``cache_shardings`` says (batch over the
+data axes, KV sequence over "model").  Nothing is issued over an axis of
+one rank.  The port partitions by its own rules, not GSPMD's (where the
+width does not divide the attention heads, a full-sequence step gives
+each rank a run of whole heads read from the gathered ``wq`` and ``wo``,
+and the decode step projects on the placed columns), so its counts are
+its own, not XLA's.
 """
 
 from __future__ import annotations
@@ -94,11 +96,13 @@ class Partitioned:
     """What rank 0 of the mesh does in one run of a step
     (``Lowerable.partition``): ``collectives`` {kind: [calls, wire bytes]}
     under the JAX names, ``temp_bytes`` its peak of live bytes beyond the
-    arguments, ``microbatches`` the accumulation its batch shard allows."""
+    arguments, ``microbatches`` the accumulation its batch shard allows,
+    ``flops`` its matrix products (as ``Lowered.flops`` counts them)."""
 
     collectives: dict[str, list[int]]
     temp_bytes: int
     microbatches: int
+    flops: int
 
     @property
     def collective_bytes(self) -> int:
@@ -130,11 +134,13 @@ class Lowerable:
         with _fake_group(self.mesh) as mesh:
             fn, args, micro = self.sharded(mesh)
             tracker = MemTracker()
-            with torch.no_grad(), count_collectives() as log, tracker:
+            flops = FlopCounterMode(display=False)
+            with torch.no_grad(), count_collectives() as log, tracker, flops:
                 fn(*args)
             peak = tracker.get_tracker_snapshot("peak")
         temp = sum(per_dev["Total"] for per_dev in peak.values())
-        return Partitioned(dict(sorted(log.items())), int(temp), micro)
+        n = int(flops.get_total_flops())
+        return Partitioned(dict(sorted(log.items())), int(temp), micro, n)
 
     def lower(self) -> Lowered:
         with torch.no_grad(), FlopCounterMode(display=False) as counter:
@@ -220,7 +226,7 @@ def sharded_decode_fn(cfg: ModelConfig, shardings: Any, cache_sh: Any) -> Callab
     over the vocab."""
 
     def fn(params, cache, token, cache_len, live=None):
-        lent = lend_params(params, shardings, cfg)
+        lent = lend_params(params, shardings, cfg, decode=True)
         split = lend_cache(cache, cache_sh)
         logits, _ = decode_step(cfg, lent, split, token, cache_len, live)
         return logits, cache

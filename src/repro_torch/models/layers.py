@@ -19,10 +19,18 @@ through :func:`leaf`, where :func:`on_each_leaf` may place it before the
 next is drawn (``training.train_loop.init_params_sharded``).
 
 Tensor parallelism: a layer whose params dict is a
-``distributed.sharding.SplitParams`` computes on this rank's slices along
-"model" (``.tp``): attention on its heads (``wq``, ``wk``, ``wv`` split by
-column, ``wo`` by row), the MLP on its ff columns, each closed by one
-``reduce_from_model``; its input enters through ``copy_to_model``.
+``distributed.sharding.SplitParams`` computes its share of the work along
+"model" (``.tp``), each closed by one ``reduce_from_model``; its input
+enters through ``copy_to_model``.  The MLP computes on its ff columns.
+Full-sequence attention computes this rank's run of whole heads
+(:func:`head_run`, none on some ranks where the heads are fewer than the
+width): the rank's slices of ``wq``, ``wk``, ``wv`` by column and ``wo``
+by row where the width divides the heads, else its heads' columns and
+rows read from the leaves gathered whole.  The decode step
+(``models.model``) projects the new token on the placed columns of
+``wq``, ``wk`` and ``wv``, a fraction of a head included, joins the
+columns over "model" (one all-gather) before rope, and closes with
+``wo``'s placed rows.
 """
 
 from __future__ import annotations
@@ -37,7 +45,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.collectives import copy_to_model, reduce_from_model
+from repro_torch.distributed.collectives import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
 
 Params = dict[str, Any]
 
@@ -253,6 +265,37 @@ def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.T
     return _project_q(p, cfg, x, positions), k, v
 
 
+def project_on_columns(
+    p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, tp, kv=True
+) -> list:
+    """The decode step's q (and k, v) of every head, rope applied.  Where
+    ``p`` is lent split over "model" (``tp``), each projection is computed
+    on this rank's placed columns where its weight is split (a fraction of
+    a head included), whole where it is not, and the split ones are joined
+    over "model" by one all-gather, in rank order, before rope."""
+    B, S, _ = x.shape
+    names = ("q", "k", "v") if kv else ("q",)
+    outs = []
+    for n in names:
+        t = x @ p[f"w{n}"]
+        if cfg.qkv_bias:
+            t = t + p[f"b{n}"].to(t.dtype)
+        outs.append(t)
+    heads = [cfg.n_heads if n == "q" else cfg.n_kv_heads for n in names]
+    mine = [t.shape[-1] != h * cfg.head_dim for t, h in zip(outs, heads)]
+    if any(mine):
+        split = [t for t, m in zip(outs, mine) if m]
+        every = gather_from_model(torch.cat(split, dim=-1), -1, tp)
+        widths = [t.shape[-1] for t in split]
+        every = every.unflatten(-1, (tp.size, -1)).split(widths, -1)
+        joined = iter(t.flatten(-2) for t in every)
+        outs = [next(joined) if m else t for t, m in zip(outs, mine)]
+    outs = [t.reshape(B, S, h, cfg.head_dim) for t, h in zip(outs, heads)]
+    if cfg.use_rope:
+        outs[:2] = [rope(t, positions, cfg.rope_theta) for t in outs[:2]]
+    return outs
+
+
 def _online_update(carry, s, vb):
     """Fold one KV chunk's f32 scores ``s`` (B, H, Sq, c) and values ``vb``
     (B, c, H, D) into the running max, sum and output."""
@@ -288,7 +331,7 @@ def _chunked_attention(
     """
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    rep = H // KV
+    rep = H // KV if KV else 1  # no heads on this rank: empty tensors
     scale = 1.0 / math.sqrt(D)
     n_chunks = -(-Sk // chunk)
     pad = n_chunks * chunk - Sk
@@ -360,52 +403,61 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def local_heads(p: Params, cfg: AttnConfig, tp) -> AttnConfig:
-    """The attention config of this rank's share of the heads: ``n_heads
-    / tp.size`` query heads, and its own kv heads where ``wk`` is split
-    (``n_kv_heads / tp.size``), else all of them (``wk`` whole)."""
-    kv = cfg.n_kv_heads
-    if p["wk"].shape[-1] != cfg.kv_dim:
-        kv = p["wk"].shape[-1] // cfg.head_dim
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size, n_kv_heads=kv)
+def head_run(n: int, tp) -> tuple[int, int]:
+    """This rank's contiguous run of ``n`` heads along "model": from
+    ⌊r·n/w⌋ to ⌊(r+1)·n/w⌋ for rank ``r`` of width ``w`` (the rank's slice
+    where ``w`` divides ``n``; empty on some ranks where ``n < w``)."""
+    return tp.rank * n // tp.size, (tp.rank + 1) * n // tp.size
 
 
-def _kv_part(p: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnConfig]:
-    """Where the kv heads are whole (they do not split ``tp.size`` ways):
-    the columns of ``wk`` and ``wv`` (and their biases) that this rank's
-    query heads read — query head ``h`` reads kv head ``h // rep`` — and
-    the config over them.  Each kv head is taken once where the rank's
-    heads share it evenly, else once for every query head."""
-    local = local_heads(p, cfg, tp)
-    if local.n_kv_heads != cfg.n_kv_heads or tp.size == 1:
-        return p, local
-    h, rep = local.n_heads, cfg.n_heads // cfg.n_kv_heads
-    reads = [(tp.rank * h + j) // rep for j in range(h)]
-    kv = sorted(set(reads))
-    if h % len(kv) or reads != [k for k in kv for _ in range(h // len(kv))]:
-        kv = reads
-    cols = torch.tensor(
-        [k * cfg.head_dim + d for k in kv for d in range(cfg.head_dim)],
-        device=p["wk"].device,
-    )
+def _rank_heads(p: Params, cfg: AttnConfig, tp) -> tuple[Params, AttnConfig]:
+    """The params and config of this rank's run of query heads
+    (:func:`head_run`) and the kv heads they read.  A leaf split over
+    "model" holds them already (the width divides the heads, and the kv
+    heads where ``wk`` is split); a leaf lent whole is read in parts: the
+    run's columns of ``wq``, ``bq`` and rows of ``wo``, and the columns of
+    ``wk``, ``wv``, ``bk``, ``bv`` of the kv heads the run reads — query
+    head ``h`` reads kv head ``h // rep`` — each once where the run's heads
+    share them evenly, else once for every query head."""
+    h0, h1 = head_run(cfg.n_heads, tp)
+    D = cfg.head_dim
     part = dict(p)
-    for name in ("wk", "wv", "bk", "bv"):
-        if name in p:
-            part[name] = p[name].index_select(-1, cols)
-    return part, dataclasses.replace(local, n_kv_heads=len(kv))
+    if p["wq"].shape[-1] == cfg.q_dim:
+        cols = slice(h0 * D, h1 * D)
+        part["wq"], part["wo"] = p["wq"][..., cols], p["wo"][..., cols, :]
+        if "bq" in p:
+            part["bq"] = p["bq"][..., cols]
+    n_kv = p["wk"].shape[-1] // D
+    if p["wk"].shape[-1] == cfg.kv_dim:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        reads = [h // rep for h in range(h0, h1)]
+        kv = sorted(set(reads))
+        even = [k for k in kv for _ in range(len(reads) // max(len(kv), 1))]
+        if reads != even:
+            kv = reads
+        idx = torch.tensor(
+            [k * D + d for k in kv for d in range(D)],
+            dtype=torch.long,
+            device=p["wk"].device,
+        )
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                part[name] = p[name].index_select(-1, idx)
+        n_kv = len(kv)
+    return part, dataclasses.replace(cfg, n_heads=h1 - h0, n_kv_heads=n_kv)
 
 
 def attention(
     p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Self-attention over a full sequence (training / prefill); on this
-    rank's heads where ``p`` is split over "model"."""
+    rank's run of heads where ``p`` is lent split over "model"."""
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, x.device)
     tp = getattr(p, "tp", None)
     if tp is not None:
-        p, cfg = _kv_part(p, cfg, tp)
+        p, cfg = _rank_heads(p, cfg, tp)
         x = copy_to_model(x, tp)
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = _chunked_attention(
@@ -419,12 +471,12 @@ def cross_attention(
     p: Params, cfg: AttnConfig, x: torch.Tensor, kv: torch.Tensor
 ) -> torch.Tensor:
     """Encoder-decoder cross attention (no RoPE on the kv side); on this
-    rank's heads where ``p`` is split over "model"."""
+    rank's run of heads where ``p`` is lent split over "model"."""
     B, S, _ = x.shape
     Sk = kv.shape[1]
     tp = getattr(p, "tp", None)
     if tp is not None:
-        p, cfg = _kv_part(p, cfg, tp)
+        p, cfg = _rank_heads(p, cfg, tp)
         x, kv = copy_to_model(x, tp), copy_to_model(kv, tp)
     pos_q = _positions(B, S, x.device)
     pos_k = _positions(B, Sk, x.device)

@@ -30,11 +30,15 @@ gives the rank's slice of the logits, ``loss_fn`` is a cross-entropy
 over the split vocab (its max, sum of exponentials and gold logit each
 reduced over "model", no (B, S, vocab) tensor gathered), and ``prefill``
 and ``decode_step`` return whole logits (the last position's slices
-all-gathered).  The layers read their own split from their dicts.  A
-decode cache whose KV sequence is split over "model" (a
+all-gathered).  The layers read their own split from their dicts
+(attention and the SSD block a run of heads a rank; the decode step's
+attention projects on the placed columns, ``layers.project_on_columns``).
+A decode cache whose KV sequence is split over "model" (a
 ``distributed.sharding.SplitCache``) is written only by the rank whose
 positions hold the new slot, and each rank's partial softmax over its
-positions is combined by a max and a sum over "model" (log-sum-exp).
+positions is combined by a max and a sum over "model" (log-sum-exp).  A
+"model" axis of one rank is never lent (``sharding.model_axis``): there
+the paths are the one-device ones.
 """
 
 from __future__ import annotations
@@ -579,18 +583,6 @@ def _merge_into(cache: torch.Tensor, new: torch.Tensor, live) -> None:
     cache.copy_(new)
 
 
-def _every_head(q, k, v, kv_split: bool, tp):
-    """The new token's q (and k, v where the kv heads are split too) of
-    every head, from this rank's heads: one all-gather over "model"."""
-    if not kv_split:
-        return gather_from_model(q, 2, tp), k, v
-    h, kv = q.shape[2], k.shape[2]
-    both = gather_from_model(torch.cat([q, k, v], dim=2), 2, tp)
-    both = both.unflatten(2, (tp.size, h + 2 * kv))
-    q, k, v = both.split([h, kv, kv], dim=3)
-    return q.flatten(2, 3), k.flatten(2, 3), v.flatten(2, 3)
-
-
 def _decode_attn(
     p: Params,
     cfg_a: AttnConfig,
@@ -617,19 +609,18 @@ def _decode_attn(
     ``seq`` (a ``ModelAxis``): the cache holds this rank's run of the
     positions, S/width of them: the rank whose run holds a row's slot
     writes it, and the ranks' partial softmaxes are combined.  Where ``p``
-    splits the heads, the new token's q (and k, v) of every head are
-    all-gathered first (the cache holds every kv head), and the rank keeps
-    its own heads' output for its rows of ``wo``.
+    is lent split over "model", the new token's q (and k, v) are projected
+    on this rank's placed columns and joined over "model" before rope
+    (``layers.project_on_columns``: the cache holds every kv head), and
+    the rank keeps its columns of the output for its rows of ``wo``.
     """
     B = x.shape[0]
     S_l = k_cache.shape[1]
     lo, S = (seq.rank * S_l, S_l * seq.size) if seq is not None else (0, S_l)
     tp = getattr(p, "tp", None)
-    cfg_l = cfg_a if tp is None else L.local_heads(p, cfg_a, tp)
+    pos = cache_len[:, None]
     if update_cache:
-        q, k, v = L._project_qkv(p, cfg_l, x, cache_len[:, None])
-        if tp is not None:
-            q, k, v = _every_head(q, k, v, cfg_l.n_kv_heads != cfg_a.n_kv_heads, tp)
+        q, k, v = L.project_on_columns(p, cfg_a, x, pos, tp)
         rows = torch.arange(B, device=x.device)
         slot = (cache_len % S if ring else cache_len).long() - lo
         own = None
@@ -643,9 +634,7 @@ def _decode_attn(
             new = new.to(cache.dtype)
             cache[rows, slot] = new if own is None else torch.where(own, new, old)
     else:
-        q = L._project_q(p, cfg_l, x, cache_len[:, None])
-        if tp is not None:
-            q = gather_from_model(q, 2, tp)
+        (q,) = L.project_on_columns(p, cfg_a, x, pos, tp, kv=False)
     base = lo + torch.arange(S_l, device=x.device)[None, :]
     length = cache_len[:, None].long()
     if ring:
@@ -679,8 +668,8 @@ def _decode_attn(
             cache[rows, slot] = torch.where(live[:, None, None], cache[rows, slot], old)
     if tp is None:
         return out @ p["wo"]
-    mine = out[..., tp.rank * cfg_l.q_dim : (tp.rank + 1) * cfg_l.q_dim]
-    return reduce_from_model(mine @ p["wo"], tp)
+    n = p["wo"].shape[-2]
+    return reduce_from_model(out[..., tp.rank * n : (tp.rank + 1) * n] @ p["wo"], tp)
 
 
 def decode_step(

@@ -16,11 +16,14 @@ metrics)``:
   (``distributed.collectives.gather``).  Along "model" the ranks divide
   the work (tensor parallelism, ``distributed.sharding.lend_params``):
   each keeps its slices of the heads, ff columns, vocab, experts and lru
-  channels and computes its share of every layer on the same batch
-  shard; only the leaves of a layer that cannot compute on its split
-  (the SSD block, attention whose heads the width does not divide) are
-  gathered over "model" too.  On one device without a group the step is
-  the plain one;
+  channels and computes its share of every layer (its run of attention
+  and SSD heads) on the same batch shard; only the leaves whose even cut
+  does not fall on the rank's share are gathered over "model" and read in
+  parts (the router, the SSD block's packed ``in_proj`` and conv,
+  attention's weights where the width does not divide the heads).
+  Nothing is issued over an axis of one rank, so on a group of one the
+  step is the one-device step's arithmetic, bit for bit.  On one device
+  without a group the step is the plain one;
 * :func:`make_dp_train_step` — explicit data parallelism over the data
   axes of the mesh, with gradient compression (int8 / top-k with error
   feedback) on the cross-replica mean, level by level: over "data", then
@@ -142,9 +145,12 @@ def loss_and_grads(
 
 def _data_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The mean of a per-rank scalar over the mesh's data axes, one axis
-    after the other (the JAX package's DP step: "pod", then "data")."""
+    after the other (the JAX package's DP step: "pod", then "data"); an
+    axis of one rank issues nothing."""
+    sizes = mesh.axis_sizes
     for ax in batch_axes(mesh):
-        x = pmean(x, mesh.group(ax))
+        if sizes[ax] > 1:
+            x = pmean(x, mesh.group(ax))
     return x
 
 
@@ -165,7 +171,9 @@ def sharded_norm(grads: Any, shardings: Any, mesh: Mesh) -> torch.Tensor:
 
     per_leaf = leaves(tree_map(part, grads, shardings))
     total = torch.sum(torch.stack(per_leaf))
-    return torch.sqrt(all_reduce_(total, dist.group.WORLD))
+    if mesh.size > 1:
+        total = all_reduce_(total, dist.group.WORLD)
+    return torch.sqrt(total)
 
 
 def sharded_step_fn(

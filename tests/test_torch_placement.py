@@ -281,6 +281,21 @@ def test_sharded_step_matches_jax(layout, case, jax_refs, request):
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS), indirect=True)
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_sharded_step_issues_nothing_over_an_axis_of_one(layout, case, request):
+    """The sharded steps' collectives, by the mesh axis whose group they
+    run over: every axis of more than one rank is used, and none of one
+    rank — nothing over "model" at (pod=2, data=2, model=1), as GSPMD
+    issues nothing there."""
+    name = request.node.callspec.params["layout"]
+    shape, axes = LAYOUTS[name]
+    want = {a for a, n in zip(axes, shape) if n > 1}
+    for rank in layout:
+        seen = set(rank["step"][case]["axes"]) - {"world"}
+        assert seen == want, (name, case, seen)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS), indirect=True)
 def test_each_rank_holds_only_its_shards(layout):
     """Params and AdamW state are DTensors placed by their specs, local
     shapes ``shard_shape``; the state a rank holds is the whole state over
@@ -752,6 +767,7 @@ def port_child(name: str, rank: int, port: str, d: str) -> None:
     from repro_torch._tree import leaves, tree_map
     from repro_torch.distributed import compression as TCmp
     from repro_torch.distributed import sharding as TS
+    from repro_torch.distributed.collectives import count_collectives
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import init_params
     from repro_torch.training import checkpoint as TCk
@@ -798,12 +814,14 @@ def port_child(name: str, rank: int, port: str, d: str) -> None:
         p, o = st["params"], st["opt"]
         step, jitted = TT.make_train_step(cfg, mesh, train)
         rec = {"loss": [], "grad_norm": []}
-        for b in batches(case, cfg.vocab, mesh):
-            if case != "unequal":  # a whole batch is not placed
-                assert jitted(p, o, b) is step
-            p, o, m = step(p, o, b)
-            rec["loss"].append(float(m["loss"]))
-            rec["grad_norm"].append(float(m["grad_norm"]))
+        with count_collectives() as log:
+            for b in batches(case, cfg.vocab, mesh):
+                if case != "unequal":  # a whole batch is not placed
+                    assert jitted(p, o, b) is step
+                p, o, m = step(p, o, b)
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["axes"] = sorted(log.by_axis(mesh))
         rec["state"] = _port_state_leaves(p, o)
         out["step"][case] = rec
         if case == "llama":
