@@ -90,6 +90,26 @@ check:
    ``make_dp_train_step`` step runs.  The card's name and power limit
    are logged with the numbers.  No partitioned-GEMM kernel is launched,
    and the phase fits in 90 s.
+   Tenancy, in the same group: ``examples/partitioned_training.py``'s flow
+   through the port.  ``TenantMeshManager(make_host_mesh(model=1),
+   "model", policy="proportional")`` admits llama3.2-3b (demand 10) and
+   mamba2-780m (demand 5); llama gets the column and trains on
+   ``submesh("llama")`` the train phase's 6 steps of 4 × 512 (seed,
+   batches), mamba time-shares the whole mesh, both at full width and
+   depth, their steps interleaved.  llama's losses must be the train
+   phase's bit for bit, and its profiled last step launches 0 NCCL and 0
+   partitioned-GEMM kernels.  Each tenant's host ms a step and the peak
+   with both resident are logged.  Then each saves its params (the f32
+   AdamW state is not written: 38.6 GB more to disk), mamba is released,
+   ``grow_into_free`` runs, and llama's checkpoint is restored onto its
+   sub-mesh, every leaf bit-equal.  The phase fits in 90 s.
+   Draw: in a child process under a fake process group, llama3.2-3b's
+   shards as ranks 0 and 3 of (1, 4) and 0 and 255 of 16×16 are drawn
+   by shard (``init_params_sharded``) and held bit for bit against
+   ``init_params`` drawn whole on the card; then dbrx-132b's ranks 0 and
+   3 of (1, 4) are drawn for real, one after the other: resident bytes
+   against the specs' shard bytes, the peak (at most 1 GB above the
+   resident bytes) and the seconds.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -152,8 +172,10 @@ runs only the placement phase, one card a rank, on a DATA × MODEL mesh
 (:func:`placement_only`): llama3.2-3b trained on rank 0's card alone
 first, then through the sharded step on the mesh (its losses within
 3e-2 of the one-card run's) and decoded through ``sharded_decode_fn``;
-where "model" is 4 wide or more, phi3.5-moe-42b-a6.6b served whole, its
-params drawn leaf by leaf.  Rank 0 prints the numbers.  The first prints where the
+where "model" is 2 wide or more, llama3.2-3b and mamba2-780m trained side
+by side on their own column slices (:func:`tenancy_across`); where it is
+4 wide or more, phi3.5-moe-42b-a6.6b and dbrx-132b served whole, their
+params drawn by shard.  Rank 0 prints the numbers.  The first prints where the
 armed side of the obs overhead pair spends its time, part by part and
 module by module, and the Python bytecode instructions each side runs
 (:func:`obs_split`).  The second runs ``N`` pairs of the gate's own
@@ -284,6 +306,21 @@ PLACEMENT_PHASE_S = 90.0
 PLACEMENT_DECODE = (4, 128, 8)  # rows, max_seq, greedy tokens of the sharded decode
 PLACEMENT_ONLY_FLAG = "--placement-only"  # with --mesh DATA,MODEL, under torchrun
 MOE_WHOLE = "phi3.5-moe-42b-a6.6b"  # served whole where "model" is 4 wide or more
+# the tenancy phase: examples/partitioned_training.py's two tenants (name,
+# arch, demand, seed) at full width, trained side by side on the one-rank group
+TENANTS = (("llama", TRAIN_ARCH, 10.0, SEED), ("mamba", "mamba2-780m", 5.0, 1))
+TENANCY_MAMBA_BATCH = TRAIN_BATCH  # mamba's batch beside llama's state (not cut)
+TENANCY_CKPT_DIR = "build/tenancy_ckpt"  # gitignored; removed after use
+TENANCY_PHASE_S = 90.0
+# the draw check: llama3.2-3b's shards of these (mesh, rank), drawn as that
+# rank of a fake process group, against the whole draw; then dbrx-132b's
+# ranks of (1, 4), each drawn for real
+DRAW_FLAG = "--draw-check"  # the child process of the draw check
+DRAW_SHARDS = (((1, 4), 0), ((1, 4), 3), ((16, 16), 0), ((16, 16), 255))
+DRAW_BIG, DRAW_BIG_RANKS = "dbrx-132b", (0, 3)
+DRAW_PEAK_SLACK = 1e9  # a rank's draw peak may exceed its shards by one GB
+DRAW_TIMEOUT_S = 300
+DECODE_HEADROOM = 4e9  # free bytes a rank needs to decode a model served whole
 # AdamW's bytes a parameter: the bf16 grad read, the f32 master, m and v read
 # and written, the bf16 param written
 ADAMW_BYTES_PER_PARAM = 28
@@ -742,6 +779,7 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
 def serving_phase(torch) -> dict:
     from repro_torch.configs import get
     from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import decode_step, init_params
     from repro_torch.serving.engine import MultiTenantEngine
     from repro_torch.serving.kv_cache import DecodeSession
@@ -752,7 +790,8 @@ def serving_phase(torch) -> dict:
     cfg = spec.model
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = MultiTenantEngine(TenantMeshManager(device_grid("cuda", 1)), policy="equal")
+    card = Mesh(device_grid("cuda", 1), ("data", "model"))
+    eng = MultiTenantEngine(TenantMeshManager(card), policy="equal")
     sessions = {}
     for i, name in enumerate(("llama3.2-3b/a", "llama3.2-3b/b")):
         params = init_params(cfg, seed=i, device="cuda")
@@ -911,11 +950,13 @@ def serve_engine(torch, phase: str, tenants, seed: int) -> dict:
     one step must move over 3.35 TB/s, resident and peak memory, init s."""
     from repro_torch.configs import get
     from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
+    from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.serve import add_tenant
     from repro_torch.models.model import decode_step
     from repro_torch.serving.engine import MultiTenantEngine
 
-    eng = MultiTenantEngine(TenantMeshManager(device_grid("cuda", 1)), policy="equal")
+    card = Mesh(device_grid("cuda", 1), ("data", "model"))
+    eng = MultiTenantEngine(TenantMeshManager(card), policy="equal")
     sessions, stats, seconds = {}, {}, {}
     for i, (arch, cfg) in enumerate(tenants):
         before = torch.cuda.memory_allocated()
@@ -1633,12 +1674,16 @@ def placement_decode(torch, cfg, mesh, params) -> dict:
     }
 
 
-def moe_whole(torch, mesh) -> dict:
-    """``MOE_WHOLE`` at full width and depth served through
-    ``sharded_decode_fn``: its params drawn and placed leaf by leaf
-    (``init_params_sharded``, as ``init_sharded`` draws them; no AdamW
-    state), its experts split over "model", ``PLACEMENT_DECODE`` greedy
-    tokens; finite logits of the whole vocab."""
+def served_whole(torch, mesh, arch: str) -> dict:
+    """``arch`` at full width and depth served through
+    ``sharded_decode_fn``: its params drawn by shard
+    (``init_params_sharded``, as ``init_sharded`` draws them: no rank
+    holds a whole leaf; no AdamW state), its experts split over "model",
+    ``PLACEMENT_DECODE`` greedy tokens where every rank has
+    ``DECODE_HEADROOM`` bytes free after the draw; finite logits of the
+    whole vocab."""
+    import torch.distributed as dist
+
     from repro_torch._tree import tree_map
     from repro_torch.configs import get
     from repro_torch.distributed.sharding import (
@@ -1650,7 +1695,7 @@ def moe_whole(torch, mesh) -> dict:
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.training.train_loop import init_params_sharded
 
-    cfg = get(MOE_WHOLE).model
+    cfg = get(arch).model
     n_rows, max_seq, n = PLACEMENT_DECODE
     gc.collect()
     torch.cuda.empty_cache()
@@ -1660,33 +1705,41 @@ def moe_whole(torch, mesh) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated()
+    draw_peak = torch.cuda.max_memory_allocated()
     p_sh = params_shardings(init_params(cfg, device="meta"), mesh)
-    local = locals_of(params, p_sh)
-    cache = init_cache(cfg, n_rows, max_seq, device="cuda")
-    c_sh = cache_shardings(cache, mesh)
-    local_c = tree_map(lambda t: t.clone(), locals_of(cache, c_sh))
-    rows = _my_rows(cache["k"][0], mesh)
-    del cache
-    fn = sharded_decode_fn(cfg, p_sh, c_sh)
-    with torch.no_grad():
-        logits, _, ms = _greedy(
-            torch, lambda t, c: fn(local, local_c, t, c)[0], rows, n, cfg.vocab
-        )
-    finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
-    check(finite and logits[-1].shape[-1] == cfg.vocab, f"{MOE_WHOLE}: logits")
     stats = {
-        "arch": MOE_WHOLE,
+        "arch": arch,
         "layers": cfg.n_layers,
         "experts_a_rank": p_sh["blocks"]["moe"]["up"].shard_shape(
             params["blocks"]["moe"]["up"].shape
         )[1],
+        "shard_bytes": _shard_bytes(cfg, mesh),
         "init_s": init_s,
         "resident_bytes": resident,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "decode_ms_a_step": sum(ms) / n,
-        "tokens_per_s": n_rows * n / sum(ms) * 1e3,
+        "draw_peak_bytes": draw_peak,
     }
-    del params, local, local_c, logits
+    room = torch.tensor([torch.cuda.mem_get_info()[0]], device=mesh.local_device)
+    dist.all_reduce(room, op=dist.ReduceOp.MIN)  # every rank decodes, or none
+    stats["decoded"] = int(room) >= DECODE_HEADROOM
+    if stats["decoded"]:
+        local = locals_of(params, p_sh)
+        cache = init_cache(cfg, n_rows, max_seq, device="cuda")
+        c_sh = cache_shardings(cache, mesh)
+        local_c = tree_map(lambda t: t.clone(), locals_of(cache, c_sh))
+        rows = _my_rows(cache["k"][0], mesh)
+        del cache
+        fn = sharded_decode_fn(cfg, p_sh, c_sh)
+        with torch.no_grad():
+            logits, _, ms = _greedy(
+                torch, lambda t, c: fn(local, local_c, t, c)[0], rows, n, cfg.vocab
+            )
+        finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+        check(finite and logits[-1].shape[-1] == cfg.vocab, f"{arch}: logits")
+        stats["decode_ms_a_step"] = sum(ms) / n
+        stats["tokens_per_s"] = n_rows * n / sum(ms) * 1e3
+        del local, local_c, logits
+    stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return stats
@@ -1786,19 +1839,460 @@ def placement_phase(torch, K, train: dict) -> dict:
         stats = placement_train(torch, mesh, train)
         stats.update(placement_smoke(torch, mesh))
         stats["card"] = card_line()
+        launches = K.launch_counts()
+        check(sum(launches.values()) == 0, f"the placement phase launched: {launches}")
+        stats["group_s"] = group_s
+        stats["phase_s"] = time.perf_counter() - t_phase
+        log(f"placement: {json.dumps(stats)}; {launches}")
+        phase_s = stats["phase_s"]
+        check(phase_s <= PLACEMENT_PHASE_S, f"placement took {phase_s:.1f} s")
+        del mesh
+        stats["tenancy"] = tenancy_phase(torch, K, train)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         for k in env:
             os.environ.pop(k, None)
-    launches = K.launch_counts()
-    check(sum(launches.values()) == 0, f"the placement phase launched: {launches}")
-    stats["group_s"] = group_s
-    stats["phase_s"] = time.perf_counter() - t_phase
-    log(f"placement: {json.dumps(stats)}; {launches}")
-    phase_s = stats["phase_s"]
-    check(phase_s <= PLACEMENT_PHASE_S, f"placement took {phase_s:.1f} s")
     return stats
+
+
+# ---------------------------------------------------------------------------
+# 3f. tenancy: two jobs on sub-meshes of one mesh (examples/partitioned_training.py)
+# ---------------------------------------------------------------------------
+
+
+def _tenant_job(torch, arch: str, mesh, seed: int, batch: int, state=None) -> dict:
+    """One tenant's training job on ``mesh`` (its sub-mesh, or the whole
+    mesh it time-shares): the params and state drawn there (or ``state``,
+    restored there), its step and batches at full width."""
+    from repro_torch.configs import get
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_sharded,
+        make_train_step,
+    )
+
+    cfg = get(arch).model
+    t0 = time.perf_counter()
+    if state is None:
+        params, opt_state = init_sharded(cfg, mesh, seed=seed)
+    else:
+        params, opt_state = state["params"], state["opt"]
+    torch.cuda.synchronize()
+    step, jitted = make_train_step(cfg, mesh, TrainConfig(opt=OptConfig(**TRAIN_OPT)))
+    return {
+        "arch": arch,
+        "cfg": cfg,
+        "mesh": mesh,
+        "params": params,
+        "opt": opt_state,
+        "step": step,
+        "jitted": jitted,
+        "data": DataConfig(vocab=cfg.vocab, batch=batch, seq=TRAIN_SEQ, seed=SEED),
+        "init_s": time.perf_counter() - t0,
+        "losses": [],
+        "ms": [],
+        "groups": set(),
+    }
+
+
+def _step_job(torch, job: dict, i: int, profiled: bool = False) -> dict:
+    """Step ``i`` of a tenant's job (its first checks every leaf's
+    placement); its host ms, loss and the process groups of every
+    collective it issued (the ranks of each); profiled: its NCCL and
+    partitioned-GEMM kernels."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.collectives import count_collectives
+    from repro_torch.training.data import make_batch
+
+    batch = make_batch(job["data"], i, job["mesh"])
+    if not job["losses"]:
+        job["jitted"](job["params"], job["opt"], batch)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) if profiled else contextlib.nullcontext() as prof:
+        with count_collectives() as collectives:
+            t0 = time.perf_counter()
+            job["params"], job["opt"], m = job["step"](job["params"], job["opt"], batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(loss), f"tenancy: {job['arch']} step {i + 1} loss {loss}")
+    job["losses"].append(loss)
+    job["ms"].append(ms)
+    job["groups"] |= {
+        tuple(dist.get_process_group_ranks(g)) for _, g in collectives.groups
+    }
+    if prof is None:
+        return {}
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in prof.key_averages() if e.device_type == cuda]
+    check(sum(e.self_device_time_total for e in dev) > 0, "tenancy: no device time")
+    return {
+        "nccl_kernels": sum(e.count for e in dev if "nccl" in e.key.lower()),
+        "partitioned_gemm_kernels": sum(e.count for e in dev if kernel_name(e.key)),
+        "kernels": sum(e.count for e in dev),
+    }
+
+
+def _tenant_stats(job: dict) -> dict:
+    return {
+        "arch": job["arch"],
+        "ranks": job["mesh"].device_mesh.mesh.flatten().tolist(),
+        "init_s": job["init_s"],
+        "losses": job["losses"],
+        "step_ms": job["ms"],
+        # steps 2 to 5: neither the first nor the profiled one
+        "step_ms_median": statistics.median(job["ms"][1:-1]),
+        "groups": sorted(job["groups"]),
+    }
+
+
+def tenancy_phase(torch, K, train: dict) -> dict:
+    """examples/partitioned_training.py's flow through the port on the
+    one-rank NCCL group: ``TenantMeshManager(make_host_mesh(model=1),
+    "model", policy="proportional")`` admits llama3.2-3b (demand 10) and
+    mamba2-780m (demand 5); llama gets the one column and trains on its
+    sub-mesh the train phase's steps (seed, batches), mamba time-shares
+    the whole mesh, their steps interleaved; llama's losses must be the
+    train phase's bit for bit, and its profiled last step launches 0 NCCL
+    and 0 partitioned-GEMM kernels.  Then each saves its params, mamba is
+    released, ``grow_into_free`` runs, and llama's checkpoint is restored
+    onto its sub-mesh (by its shardings): every leaf bit-equal.  No
+    partitioned-GEMM kernel is launched, and the phase fits in
+    ``TENANCY_PHASE_S``."""
+    import shutil
+
+    from repro_torch.distributed.sharding import params_shardings
+    from repro_torch.distributed.tenancy import TenantMeshManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 1 << 30, "the placement phase was not freed")
+    K.reset_launch_counts()
+    mesh = make_host_mesh(model=1, device="cuda")
+    mgr = TenantMeshManager(mesh, "model", policy="proportional")
+    for name, _, demand, _ in TENANTS:
+        mgr.admit(name, demand=demand)
+    grants = {k: str(v) for k, v in mgr.rebalance().items()}
+    check(list(grants) == ["llama"], f"tenancy: grants {grants}")
+    torch.cuda.reset_peak_memory_stats()
+    jobs = {}
+    for name, arch, _, seed in TENANTS:
+        # one column: llama holds it, mamba time-shares the whole mesh
+        placed = mgr.tenant(name).partition is not None
+        sub = mgr.submesh(name) if placed else mesh
+        batch = TRAIN_BATCH if placed else TENANCY_MAMBA_BATCH
+        jobs[name] = _tenant_job(torch, arch, sub, seed, batch)
+    resident = torch.cuda.memory_allocated()
+    profiled = {}
+    for i in range(TRAIN_STEPS):
+        for name, job in jobs.items():
+            last = name == "llama" and i == TRAIN_STEPS - 1
+            profiled.update(_step_job(torch, job, i, profiled=last))
+    peak = torch.cuda.max_memory_allocated()
+    llama = jobs["llama"]
+    what = f"tenancy: llama {llama['losses']} vs the train phase {train['losses']}"
+    check(llama["losses"] == train["losses"], what)
+    check(profiled["nccl_kernels"] == 0, f"tenancy: a sub-mesh step {profiled}")
+    check(profiled["partitioned_gemm_kernels"] == 0, f"tenancy: {profiled}")
+    stats = {name: _tenant_stats(job) for name, job in jobs.items()}
+    stats.update(
+        grants=grants,
+        resident_bytes_both=resident,
+        max_memory_allocated_both=peak,
+        profiled_llama_step=profiled,
+    )
+
+    # each tenant saves its params when it finishes; mamba drains
+    shutil.rmtree(TENANCY_CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    for name, job in jobs.items():
+        ckpt.save(f"{TENANCY_CKPT_DIR}/{name}", TRAIN_STEPS, {"params": job["params"]})
+        job["opt"] = None
+    stats["save_s"] = time.perf_counter() - t0
+    del jobs["mamba"]
+    mgr.release("mamba")
+    stats["grown"] = {k: str(v) for k, v in mgr.grow_into_free().items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    sub = mgr.submesh("llama")
+    shapes = init_params(llama["cfg"], device="meta")
+    t0 = time.perf_counter()
+    restored = ckpt.restore(
+        f"{TENANCY_CKPT_DIR}/llama",
+        TRAIN_STEPS,
+        {"params": shapes},
+        {"params": params_shardings(shapes, sub)},
+    )
+    torch.cuda.synchronize()
+    stats["restore_s"] = time.perf_counter() - t0
+    shutil.rmtree(TENANCY_CKPT_DIR)
+    saved = dict(_leaf_items(llama["params"]))
+    for name, t in _leaf_items(restored["params"]):
+        same = torch.equal(t.to_local(), saved[name].to_local())
+        check(same, f"tenancy: llama's {name} differs after the restore")
+    stats["restored_leaves_bit_equal"] = len(saved)
+    del llama, jobs, restored, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the tenancy phase launched: {launches}")
+    stats["card"] = card_line()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"tenancy: {json.dumps(stats)}; {launches}")
+    phase_s = stats["phase_s"]
+    check(phase_s <= TENANCY_PHASE_S, f"tenancy took {phase_s:.1f} s")
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# 3g. the sharded draw: a rank draws only its shards
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _as_rank(shape: tuple, rank: int, device: str):
+    """A ``shape`` ("data", "model") mesh seen from ``rank`` of a fake
+    process group of its size (no other rank exists)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+
+    world = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield make_mesh(shape, ("data", "model"), device=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_bytes(cfg, mesh) -> int:
+    """The bytes of a rank's shards of ``cfg``'s params, from the specs on
+    the meta device."""
+    from repro_torch.distributed.sharding import params_shardings
+    from repro_torch.models.model import init_params
+
+    shapes = init_params(cfg, device="meta")
+    sh = dict(_leaf_items(params_shardings(shapes, mesh)))
+    return sum(
+        math.prod(sh[name].shard_shape(t.shape)) * t.element_size()
+        for name, t in _leaf_items(shapes)
+    )
+
+
+def draw_child(device: str = "cuda") -> int:
+    """The draw check, in a process of its own (no process group of the
+    script's is up): llama3.2-3b drawn whole on the card, then its shards
+    for each of ``DRAW_SHARDS`` drawn as that rank of a fake group, each
+    bit-equal to the whole draw's slice; then ``DRAW_BIG``'s ranks of
+    (1, 4), drawn for real one after the other: the resident bytes against
+    the specs' shard bytes, the peak (at most ``DRAW_PEAK_SLACK`` above
+    the resident bytes) and the seconds.  Prints one JSON line."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    import repro_torch.kernels as K
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import params_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.training.train_loop import init_params_sharded
+
+    K.reset_launch_counts()
+    out: dict = {"shards": [], "big": []}
+    cfg = get(TRAIN_ARCH).model
+    whole = init_params(cfg, SEED, device=device)
+    for shape, rank in DRAW_SHARDS:
+        with _as_rank(shape, rank, device) as mesh:
+            t0 = time.perf_counter()
+            got = init_params_sharded(cfg, mesh, seed=SEED)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            coord = mesh.coordinate()
+            sh = dict(_leaf_items(params_shardings(whole, mesh)))
+            mine = dict(_leaf_items(got))
+            for name, w in _leaf_items(whole):
+                box = sh[name].local_slices(w.shape, coord)
+                same = torch.equal(mine[name].to_local(), w[box])
+                check(same, f"draw: {TRAIN_ARCH} {name} at {shape} rank {rank}")
+            out["shards"].append(
+                {
+                    "arch": TRAIN_ARCH,
+                    "mesh": list(shape),
+                    "rank": rank,
+                    "leaves_bit_equal": len(mine),
+                    "shard_bytes": _shard_bytes(cfg, mesh),
+                    "s": seconds,
+                }
+            )
+            del got, mine
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    big = get(DRAW_BIG).model
+    meta = make_mesh((16, 16), ("data", "model"), device="meta")
+    out["big_shard_bytes_16x16"] = _shard_bytes(big, meta)
+    for rank in DRAW_BIG_RANKS:
+        with _as_rank((1, 4), rank, device) as mesh:
+            spec = _shard_bytes(big, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = init_params_sharded(big, mesh, seed=SEED)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            resident = torch.cuda.memory_allocated() - base
+            peak = torch.cuda.max_memory_allocated() - base
+            row = {
+                "arch": DRAW_BIG,
+                "mesh": [1, 4],
+                "rank": rank,
+                "shard_bytes": spec,
+                "resident_bytes": resident,
+                "peak_bytes": peak,
+                "peak_over_resident_bytes": peak - resident,
+                "s": seconds,
+            }
+            check(peak <= resident + DRAW_PEAK_SLACK, f"draw: {row}")
+            out["big"].append(row)
+            del got
+    launches = K.launch_counts()
+    check(sum(launches.values()) == 0, f"the draw check launched: {launches}")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def draw_check(torch) -> dict:
+    """The draw check (``draw_child``) in a fresh interpreter on the card,
+    within ``DRAW_TIMEOUT_S``: its numbers, or its failure."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), DRAW_FLAG],
+        capture_output=True,
+        text=True,
+        timeout=DRAW_TIMEOUT_S,
+    )
+    check(run.returncode == 0, f"the draw check failed:\n{run.stderr[-4000:]}")
+    stats = json.loads(run.stdout.strip().splitlines()[-1])
+    stats["phase_s"] = time.perf_counter() - t0
+    stats["card"] = card_line()
+    log(f"draw: {json.dumps(stats)}")
+    return stats
+
+
+def tenancy_across(torch, mesh, one: dict) -> dict:
+    """On several cards (``--placement-only``): ``TenantMeshManager(mesh,
+    "model", policy="equal")`` gives llama3.2-3b and mamba2-780m a column
+    slice each (width 2 at (1, 4)); every rank builds both sub-meshes, in
+    one order, and trains its own tenant at full width (the two jobs
+    side by side, ``TRAIN_STEPS`` steps; llama's losses within
+    ``BF16_TOL`` of rank 0's card alone); no collective's group holds a
+    rank outside its tenant's slice.  Then each saves its state, mamba is
+    released, llama grows over the freed columns, and its checkpoint is
+    restored onto the wider sub-mesh and steps once more (within
+    ``BF16_TOL`` of the card alone's next step).  Returns every rank's
+    numbers."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.distributed.sharding import params_shardings
+    from repro_torch.distributed.tenancy import TenantMeshManager
+    from repro_torch.models.model import init_params
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_loop import opt_shardings
+
+    mgr = TenantMeshManager(mesh, "model", policy="equal")
+    for name, _, demand, _ in TENANTS:
+        mgr.admit(name, demand=demand)
+    grants = {k: str(v) for k, v in mgr.rebalance().items()}
+    check(len(grants) == 2, f"tenancy: grants {grants}")
+    subs = {name: mgr.submesh(name) for name, *_ in TENANTS}  # every rank, one order
+    (name, arch, _, seed), = [
+        t for t in TENANTS if subs[t[0]].device_mesh.get_coordinate() is not None
+    ]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    job = _tenant_job(torch, arch, subs[name], seed, TRAIN_BATCH)
+    profiled = {}
+    for i in range(TRAIN_STEPS):
+        profiled.update(_step_job(torch, job, i, profiled=i == TRAIN_STEPS - 1))
+    mine = _tenant_stats(job)
+    own = set(mine["ranks"])
+    check(all(set(g) <= own for g in job["groups"]), f"tenancy: groups {mine}")
+    mine.update(
+        tenant=name,
+        grants=grants,
+        profiled_step=profiled,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    if name == "llama":
+        errs = [abs(a - b) / abs(b) for a, b in zip(job["losses"], one["losses"])]
+        mine["max_rel_loss_err"] = max(errs)
+        check(max(errs) <= BF16_TOL, f"tenancy: llama {job['losses']} vs {one}")
+    t0 = time.perf_counter()
+    state = {"params": job["params"], "opt": job["opt"]}
+    ckpt.save(f"{TENANCY_CKPT_DIR}/{name}", TRAIN_STEPS, state)
+    mine["save_s"] = time.perf_counter() - t0
+    del job, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()  # both checkpoints are written before any rank reads one
+
+    mgr.release("mamba")
+    mine["grown"] = {k: str(v) for k, v in mgr.grow_into_free().items()}
+    wide = mgr.submesh("llama")  # the width-2 sub-meshes' groups are freed
+    cfg = get(TRAIN_ARCH).model
+    shapes = init_params(cfg, device="meta")
+    t0 = time.perf_counter()
+    state = ckpt.restore(
+        f"{TENANCY_CKPT_DIR}/llama",
+        TRAIN_STEPS,
+        {"params": shapes, "opt": init_opt_state(shapes)},
+        {"params": params_shardings(shapes, wide), "opt": opt_shardings(shapes, wide)},
+    )
+    torch.cuda.synchronize()
+    mine["restore_s"] = time.perf_counter() - t0
+    wide_job = _tenant_job(torch, TRAIN_ARCH, wide, SEED, TRAIN_BATCH, state)
+    _step_job(torch, wide_job, TRAIN_STEPS)
+    loss = wide_job["losses"][-1]
+    mine["resumed"] = {
+        "ranks": wide.device_mesh.mesh.flatten().tolist(),
+        "loss": loss,
+        "one_card_loss": one["next_loss"],
+        "step_ms": wide_job["ms"][-1],
+        "groups": sorted(wide_job["groups"]),
+    }
+    err = abs(loss - one["next_loss"]) / abs(one["next_loss"])
+    check(err <= BF16_TOL, f"tenancy: {mine['resumed']}")
+    del state, wide_job
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(TENANCY_CKPT_DIR)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    return {"ranks": everyone}
 
 
 def one_card_train(torch) -> dict:
@@ -1836,6 +2330,10 @@ def one_card_train(torch) -> dict:
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "device_ms": None,
     }
+    # one step more, for the tenant restored onto a wider slice
+    batch = make_batch(dcfg, TRAIN_STEPS, card)
+    params, opt_state, m = step(params, opt_state, batch)
+    stats["next_loss"] = float(m["loss"])
     del params, opt_state, m, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1849,7 +2347,9 @@ def placement_only(argv: list) -> int:
     on that mesh, held against llama3.2-3b trained on rank 0's card alone
     first (its losses within ``BF16_TOL``) and against the one-device
     ``decode_step``; then, where "model" is 4 wide or more,
-    ``MOE_WHOLE`` served whole (``moe_whole``).  Rank 0 prints the
+    ``MOE_WHOLE`` and ``DRAW_BIG`` served whole (``served_whole``);
+    where it is 2 wide or more, the tenants side by side
+    (``tenancy_across``).  Rank 0 prints the
     numbers and the card line.  No partitioned-GEMM kernel is launched."""
     import torch
     import torch.distributed as dist
@@ -1876,8 +2376,11 @@ def placement_only(argv: list) -> int:
         t0 = time.perf_counter()
         stats = {"mesh": mesh.axis_sizes, "one_card": one[0]}
         stats["placement"] = placement_train(torch, mesh, one[0])
+        if model >= 2:
+            stats["tenancy"] = tenancy_across(torch, mesh, one[0])
         if model >= 4:
-            stats["moe_whole"] = moe_whole(torch, mesh)
+            stats["moe_whole"] = served_whole(torch, mesh, MOE_WHOLE)
+            stats["big_whole"] = served_whole(torch, mesh, DRAW_BIG)
         stats["phase_s"] = time.perf_counter() - t0
         launches = K.launch_counts()
         check(sum(launches.values()) == 0, f"placement launched: {launches}")
@@ -3169,6 +3672,8 @@ def main() -> int:
         return obs_pairs(int(sys.argv[2]))
     if sys.argv[1:2] == [PLACEMENT_ONLY_FLAG]:
         return placement_only(sys.argv[2:])
+    if sys.argv[1:] == [DRAW_FLAG]:
+        return draw_child()
     import torch
 
     if not torch.cuda.is_available():
@@ -3186,6 +3691,7 @@ def main() -> int:
     dense_phase(torch, K)
     train = train_phase(torch, K)
     placement_phase(torch, K, train)
+    draw_check(torch)
     paper_phase(K)
     serve_phase()
     mesh_phase(torch, K)

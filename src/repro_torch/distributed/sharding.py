@@ -191,14 +191,16 @@ class NamedSharding:
                 )
             return t.to(self.mesh.devices.flat[0])
         if isinstance(t, DTensor):
-            if t.device_mesh is not dm or tuple(t.placements) != self.placements:
+            # equal meshes are one mesh: DTensor's sharding propagation may
+            # hand back an equal DeviceMesh (the same ranks and names)
+            if t.device_mesh != dm or tuple(t.placements) != self.placements:
                 raise ValueError(f"a DTensor placed {t.placements}, not {self.spec}")
             return t
         # every rank holds the whole of ``t``: keep the slice, send nothing.
         # A copy of this rank's slice alone (``distribute_tensor`` copies
         # every rank's chunk first), so that the whole of ``t`` is freed
         # with ``t`` and a rank's peak is its shards plus one whole leaf
-        local = t[self.local_slices(t.shape, dm.get_coordinate())]
+        local = t[self.local_slices(t.shape, self.mesh.coordinate())]
         if local.numel() < t.numel():
             local = local.clone(memory_format=torch.contiguous_format)
         return DTensor.from_local(
@@ -208,6 +210,34 @@ class NamedSharding:
             run_check=False,
             shape=t.shape,
             stride=t.stride(),
+        )
+
+    def draw(self, shape, dtype, fill) -> torch.Tensor:
+        """A ``shape`` leaf placed by the spec, of which only this rank's
+        shard is allocated: ``fill(out, box)`` writes the part ``box`` (a
+        slice a dim) of the leaf into ``out``, on this rank's device.  On
+        one device without a group the box is the whole leaf."""
+        dm = self.mesh.device_mesh
+        if dm is None:
+            if self.mesh.size != 1:
+                raise NotImplementedError(
+                    "a mesh of placeholder devices places nothing"
+                )
+            out = torch.empty(shape, dtype=dtype, device=self.mesh.devices.flat[0])
+            fill(out, tuple(slice(0, n) for n in shape))
+            return out
+        box = self.local_slices(shape, self.mesh.coordinate())
+        out = torch.empty(
+            [s.stop - s.start for s in box], dtype=dtype, device=self.mesh.local_device
+        )
+        fill(out, box)
+        return DTensor.from_local(
+            out,
+            dm,
+            self.placements,
+            run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride(),
         )
 
     def shard_shape(self, shape) -> tuple[int, ...]:
@@ -248,7 +278,7 @@ class NamedSharding:
         dm = self.mesh.device_mesh
         if dm is None:
             return t
-        return t[self.local_slices(t.shape, dm.get_coordinate())]
+        return t[self.local_slices(t.shape, self.mesh.coordinate())]
 
 
 def _pspec(*entries) -> tuple:

@@ -1,20 +1,23 @@
-"""Device-level multi-tenancy — Algorithm 1 applied to a grid of cards.
+"""Mesh-level multi-tenancy — Algorithm 1 applied to a mesh of cards.
 
 Counterpart of ``TenantMeshManager`` in ``repro.distributed.tenancy``.  One
-resource pool (the columns of a device grid ≙ the systolic array's PE
-columns) is *vertically partitioned* into contiguous per-tenant slices,
-sized by a pluggable policy from load and merged when tenants drain.  The
-JAX version partitions a ``jax.sharding.Mesh``; here the grid is a NumPy
-object array of ``torch.device``s shaped (rows, columns), and a tenant's
-sub-grid is the slice of its columns.  One card is a (1, 1) grid.
+resource pool (the devices along the mesh's ``column_axis``, "model" ≙
+the systolic array's PE columns) is *vertically partitioned* into
+contiguous per-tenant column ranges, sized by a pluggable policy from
+load and merged when tenants drain; every other mesh axis collapses into
+the paper's rows.  ``Mul_En`` isolation is a per-tenant sub-``Mesh``
+(:meth:`TenantMeshManager.submesh`, ``launch.mesh.sub_mesh``): where a
+process group backs the mesh, the sub-mesh's ``DeviceMesh`` holds the
+slice's ranks alone, so every collective a tenant's step issues runs over
+groups of its own ranks and none crosses a partition edge.
 
 Fault tolerance: ``mark_unhealthy(col)`` removes a device column from
 service; affected tenants are re-placed on the next rebalance.
 
 :class:`MeshLatencyModel` is the analytic per-layer latency of a GEMM on a
-slice of such a grid; the ``mesh`` backend of :mod:`repro_torch.api` drives
-the event scheduler with it.  Its defaults are the H100's own, measured by
-``chip_smoke.py``'s ``mesh`` phase.
+slice of such a mesh; the ``mesh`` backend of :mod:`repro_torch.api`
+drives the event scheduler with it.  Its defaults are the H100's own,
+measured by ``chip_smoke.py``'s ``mesh`` phase.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from repro_torch.api.policy import TenantDemand, resolve_policy
 from repro_torch.core.dnng import LayerShape
 from repro_torch.core.partition import ArrayShape, Partition, PartitionSet
+from repro_torch.launch.mesh import Mesh, free_mesh, sub_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +73,8 @@ class MeshLatencyModel:
 
 def device_grid(device: str | torch.device, cols: int = 1) -> np.ndarray:
     """A (1, cols) grid whose every column is ``device`` — one card seen as
-    ``cols`` columns (or, on the CPU, the test rig's stand-in grid)."""
+    ``cols`` columns (or, on the CPU, the test rig's stand-in grid): the
+    devices of ``Mesh(device_grid(...), ("data", "model"))``."""
     grid = np.empty((1, cols), dtype=object)
     for c in range(cols):
         grid[0, c] = torch.device(device)
@@ -78,7 +83,7 @@ def device_grid(device: str | torch.device, cols: int = 1) -> np.ndarray:
 
 @dataclasses.dataclass
 class Tenant:
-    """One admitted model/service occupying a column slice of the grid."""
+    """One admitted model/service occupying a column slice of the mesh."""
 
     name: str
     demand: float  # load estimate (≙ Opr of Algorithm 1)
@@ -88,23 +93,27 @@ class Tenant:
 
 
 class TenantMeshManager:
-    """Dynamic vertical partitioning of a device grid among tenants.
+    """Dynamic vertical partitioning of a device mesh among tenants.
 
-    ``devices`` is a 2-D object array of ``torch.device`` (rows, columns);
     ``policy`` (a registry name or instance, default ``"equal"``) decides
     target widths and grant order at every :meth:`rebalance`; the
     free-slice carving, unhealthy-column fencing and merge-on-free
     mechanics are policy-independent.
     """
 
-    def __init__(self, devices: np.ndarray, policy="equal"):
-        if devices.ndim != 2:
-            raise ValueError(f"devices must be (rows, cols), got {devices.shape}")
-        self.devices = devices
-        rows, n_cols = devices.shape
-        self._pset = PartitionSet(ArrayShape(rows=max(rows, 1), cols=n_cols))
+    def __init__(self, mesh: Mesh, column_axis: str = "model", policy="equal"):
+        if column_axis not in mesh.axis_names:
+            raise ValueError(f"mesh has no {column_axis!r} axis: {mesh.axis_names}")
+        self.mesh = mesh
+        self.column_axis = column_axis
+        self.axis_index = mesh.axis_names.index(column_axis)
+        n_cols = mesh.devices.shape[self.axis_index]
+        # "rows" of the paper's array = all other mesh axes, collapsed
+        n_rows = int(np.prod(mesh.devices.shape)) // n_cols
+        self._pset = PartitionSet(ArrayShape(rows=max(n_rows, 1), cols=n_cols))
         self._tenants: dict[str, Tenant] = {}
         self._unhealthy: set[int] = set()
+        self._submeshes: dict[str, tuple[Partition, Mesh]] = {}
         self.policy = policy  # resolved lazily (str | PartitionPolicy)
 
     # -- queries -----------------------------------------------------------
@@ -121,12 +130,32 @@ class TenantMeshManager:
     def utilization(self) -> float:
         return self._pset.utilization
 
-    def submesh(self, name: str) -> np.ndarray:
-        """The devices of a tenant's column slice (its sub-accelerator)."""
+    def submesh(self, name: str) -> Mesh:
+        """Per-tenant Mesh over its column slice (the sub-accelerator).
+
+        Where a process group backs the mesh, its DeviceMesh holds the
+        slice's ranks and its groups are created collectively: call this
+        on every rank, for the same tenants in the same order.  It is kept
+        per (tenant, partition), so a repeated call creates no group; the
+        groups of a partition are freed when its tenant is released or at
+        the first call that finds the tenant on another partition (move
+        the tenant's state off the old sub-mesh first)."""
         t = self._tenants[name]
         if t.partition is None:
             raise ValueError(f"tenant {name!r} holds no partition")
-        return self.devices[:, t.partition.col_start : t.partition.col_end]
+        held = self._submeshes.get(name)
+        if held is not None and held[0] == t.partition:
+            return held[1]
+        self._free_submesh(name)
+        p = t.partition
+        sub = sub_mesh(self.mesh, self.column_axis, p.col_start, p.col_end)
+        self._submeshes[name] = (p, sub)
+        return sub
+
+    def _free_submesh(self, name: str) -> None:
+        held = self._submeshes.pop(name, None)
+        if held is not None:
+            free_mesh(held[1])
 
     # -- admission / release ------------------------------------------------
     def admit(
@@ -136,7 +165,7 @@ class TenantMeshManager:
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} already admitted")
         if min_cols > self.n_cols:
-            raise ValueError(f"min_cols {min_cols} exceeds grid width {self.n_cols}")
+            raise ValueError(f"min_cols {min_cols} exceeds mesh width {self.n_cols}")
         t = Tenant(name=name, demand=demand, min_cols=min_cols, tier=tier)
         self._tenants[name] = t
         return t
@@ -146,6 +175,7 @@ class TenantMeshManager:
         t = self._tenants.pop(name)
         if t.partition is not None:
             self._pset.free(name)
+        self._free_submesh(name)
         self._pset.check()
 
     def mark_unhealthy(self, col: int) -> list[str]:

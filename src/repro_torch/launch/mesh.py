@@ -13,6 +13,13 @@ Start the ranks with ``torchrun`` and join them with
 :func:`init_distributed`.  Without a group a mesh is this process's
 devices and joins nothing.
 
+:func:`sub_mesh` cuts a run of one axis out of a mesh (a tenant's column
+slice, ``distributed.tenancy``): where a process group backs the parent,
+the sub-mesh carries a ``DeviceMesh`` over exactly the slice's ranks, so
+every collective issued on it runs over groups of those ranks alone.  A
+rank outside the slice sees the sub-mesh but holds no place in it:
+``coordinate`` and ``local_device`` raise there.
+
 A mesh on ``device="meta"`` holds placeholder devices, as many as its
 shape asks for: the port's counterpart of the JAX package's
 ``--xla_force_host_platform_device_count=512``, on which the dry run
@@ -46,13 +53,24 @@ class Mesh:
     def axis_sizes(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    def coordinate(self) -> tuple[int, ...]:
+        """This rank's place in the mesh (a process group backs it); raises
+        on a rank the mesh does not hold."""
+        coord = self.device_mesh.get_coordinate()
+        if coord is None:
+            raise ValueError(
+                f"rank {dist.get_rank()} holds no place in this mesh "
+                f"(ranks {self.device_mesh.mesh.flatten().tolist()})"
+            )
+        return tuple(coord)
+
     @property
     def local_device(self) -> torch.device:
         """This process's device: its rank's place in the mesh, or the
         first device where no process group backs the mesh."""
         if self.device_mesh is None:
             return self.devices.flat[0]
-        return self.devices[tuple(self.device_mesh.get_coordinate())]
+        return self.devices[self.coordinate()]
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis`` (None where
@@ -131,6 +149,37 @@ def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], *, device="cu
         grid.flat[r] = torch.device("cuda", r % per_host) if per_host else dev
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
     return Mesh(grid, axis_names, dm)
+
+
+def sub_mesh(mesh: Mesh, axis: str, start: int, stop: int) -> Mesh:
+    """The part of ``mesh`` at places ``start:stop`` along ``axis``, with
+    the same axis names.  Where a process group backs ``mesh``, its
+    DeviceMesh is built over the slice's ranks: every rank of the process
+    group must call this, in the same order (each group is created
+    collectively); free it with :func:`free_mesh`."""
+    cut = [slice(None)] * mesh.devices.ndim
+    cut[mesh.axis_names.index(axis)] = slice(start, stop)
+    devices = mesh.devices[tuple(cut)]
+    if mesh.device_mesh is None:
+        return Mesh(devices, mesh.axis_names)
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = mesh.device_mesh.mesh[tuple(cut)]
+    dm = DeviceMesh(mesh.device_mesh.device_type, ranks, mesh_dim_names=mesh.axis_names)
+    return Mesh(devices, mesh.axis_names, dm)
+
+
+def free_mesh(mesh: Mesh) -> None:
+    """Destroy the process groups :func:`sub_mesh` created for ``mesh``
+    (on this rank: a rank outside the slice holds none); the whole group
+    stays.  Call it on every rank, in the same order."""
+    if mesh.device_mesh is None or mesh.device_mesh.get_coordinate() is None:
+        return
+    world = dist.group.WORLD
+    for axis in mesh.axis_names:
+        group = mesh.device_mesh.get_group(axis)
+        if group is not world:
+            dist.destroy_process_group(group)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:

@@ -70,7 +70,7 @@ def main(argv=None) -> int:
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     cols = args.model_cols or n_dev
     mesh = make_host_mesh(model=cols, data=n_dev // cols, device=args.device)
-    eng = MultiTenantEngine(TenantMeshManager(mesh.devices))
+    eng = MultiTenantEngine(TenantMeshManager(mesh, "model"))
 
     for i, name in enumerate(args.tenants.split(",")):
         add_tenant(eng, name, get(name).smoke, i, args.slots, args.max_seq, args.device)

@@ -16,7 +16,12 @@ its device), or the meta device, which gives every shape and dtype and
 allocates nothing (``param_count``, ``configs.params_spec``).  ``lead`` is
 the stacked leading axes (layers, experts).  Every finished leaf passes
 through :func:`leaf`, where :func:`on_each_leaf` may place it before the
-next is drawn (``training.train_loop.init_params_sharded``).
+next is drawn.  Where the hook has a ``draw`` (``training.train_loop
+.init_params_sharded``), :func:`normal` and :func:`full` hand it the
+leaf's shape and a fill instead, and only this rank's shard is allocated:
+:func:`normal` draws the whole leaf's row blocks in their order and keeps
+the part of each that falls in the shard, so the shard holds the numbers
+of the whole draw.
 
 Tensor parallelism: a layer whose params dict is a
 ``distributed.sharding.SplitParams`` computes its share of the work along
@@ -38,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable
 
@@ -90,23 +96,76 @@ def _init_device(gen) -> torch.device:
     return gen.device if isinstance(gen, torch.Generator) else torch.device(gen)
 
 
-def normal(gen, shape: tuple[int, ...], scale: float = 1.0, dtype=torch.bfloat16):
-    """``shape`` ~ N(0, scale²), drawn in f32 and stored as ``dtype``."""
+def _make(gen, shape: tuple[int, ...], dtype, fill) -> torch.Tensor:
+    """A finished ``shape`` leaf of ``dtype`` on ``gen``'s device, written
+    by ``fill(out, box)`` (``out`` holds the part ``box``, a slice a dim, of
+    the leaf): the whole leaf, or only this rank's shard where the hook of
+    :func:`on_each_leaf` draws by shard."""
     dev = _init_device(gen)
+    hook = _ON_LEAF.get()
+    if dev.type != "meta" and hasattr(hook, "draw"):
+        return hook.draw(shape, dtype, fill)
     out = torch.empty(shape, dtype=dtype, device=dev)
-    if dev.type == "meta":
-        return leaf(out)
-    rows = out.view(-1, shape[-1])
-    step = max(1, _DRAW_ELEMS // shape[-1])
-    for r in range(0, rows.shape[0], step):
-        blk = rows[r : r + step]
-        draw = torch.randn(blk.shape, generator=gen, device=dev, dtype=torch.float32)
-        blk.copy_(draw.mul_(scale))
+    if dev.type != "meta":
+        fill(out, tuple(slice(0, n) for n in shape))
     return leaf(out)
 
 
+def _row_runs(shape: tuple[int, ...], box: tuple[slice, ...]) -> list[tuple]:
+    """The rows of a ``shape`` tensor seen as ``(-1, shape[-1])`` that
+    ``box`` meets, as runs of consecutive rows in order: (first row, rows,
+    first row of the box's own rows)."""
+    lead, cut = shape[:-1], box[:-1]
+    cuts = [d for d, c in enumerate(cut) if (c.start, c.stop) != (0, lead[d])]
+    if not cuts:
+        return [(0, math.prod(lead), 0)]
+    k = cuts[-1]  # the innermost cut dim: a run spans its slice and what is inside
+    inner = math.prod(lead[k + 1 :])
+    rows = (cut[k].stop - cut[k].start) * inner
+    runs = []
+    for idx in itertools.product(*(range(c.start, c.stop) for c in cut[:k])):
+        flat = 0
+        for d, i in enumerate(idx):
+            flat = flat * lead[d] + i
+        runs.append(((flat * lead[k] + cut[k].start) * inner, rows, len(runs) * rows))
+    return runs
+
+
+def normal(gen, shape: tuple[int, ...], scale: float = 1.0, dtype=torch.bfloat16):
+    """``shape`` ~ N(0, scale²), drawn in f32 and stored as ``dtype``: a
+    block of at most ``_DRAW_ELEMS`` rows' elements at a time (one row
+    where a row is longer), each block whole; the part of a block that the
+    leaf's allocated box holds is scaled and copied into it."""
+    dev = _init_device(gen)
+    last, n_rows = shape[-1], math.prod(shape[:-1])
+    step = max(1, _DRAW_ELEMS // last)
+
+    def fill(out: torch.Tensor, box: tuple[slice, ...]) -> None:
+        dst, cols = out.view(-1, out.shape[-1]), box[-1]
+        runs = _row_runs(shape, box)
+        i = 0
+        for r in range(0, n_rows, step):
+            n = min(step, n_rows - r)
+            draw = torch.randn(
+                (n, last), generator=gen, device=dev, dtype=torch.float32
+            )
+            while i < len(runs) and runs[i][0] + runs[i][1] <= r:
+                i += 1
+            for start, rows, at in itertools.takewhile(
+                lambda run: run[0] < r + n, itertools.islice(runs, i, None)
+            ):
+                a, b = max(start, r), min(start + rows, r + n)
+                # no name for the view: it would hold this block beside the next
+                dst[at + a - start : at + b - start].copy_(
+                    draw[a - r : b - r, cols].mul_(scale)
+                )
+            del draw
+
+    return _make(gen, shape, dtype, fill)
+
+
 def uniform(gen, shape: tuple[int, ...], low: float, high: float) -> torch.Tensor:
-    """``shape`` ~ U[low, high) in f32 (drawn, not yet a leaf: see
+    """``shape`` ~ U[low, high) in f32 (drawn whole, not yet a leaf: see
     ``models.rglru.init_rglru``)."""
     dev = _init_device(gen)
     if dev.type == "meta":
@@ -117,7 +176,7 @@ def uniform(gen, shape: tuple[int, ...], low: float, high: float) -> torch.Tenso
 
 def full(gen, shape: tuple[int, ...], value: float) -> torch.Tensor:
     """An f32 constant of ``shape`` (norm scales, biases)."""
-    return leaf(torch.full(shape, value, dtype=torch.float32, device=_init_device(gen)))
+    return _make(gen, shape, torch.float32, lambda out, box: out.fill_(value))
 
 
 def dense_init(

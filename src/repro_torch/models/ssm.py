@@ -162,7 +162,10 @@ def ssd_forward(p: Params, cfg: SSMConfig, u: torch.Tensor) -> torch.Tensor:
     # intra-chunk decay kernel L[i,j] = exp(cum_i - cum_j) for i >= j
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,n,Q,Q,H)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow, and exp's gradient there (0 · inf) would be NaN (the JAX
+    # package exponentiates first and its gradient is NaN at full width)
+    L = torch.exp(torch.where(mask[None, None, :, :, None], diff, -torch.inf))
     # intra-chunk output: y = (C_i . B_j) * L[i,j] * xdt_j
     G = torch.einsum("bniN,bnjN->bnij", Cc, Bc)  # (B,n,Q,Q)
     y_intra = torch.einsum("bnij,bnijh,bnjhp->bnihp", G, L, xc)

@@ -11,7 +11,9 @@ Counterpart of ``repro.serving.engine``, with the same behaviour:
   merge and ``grow_into_free`` widens the survivors (merge-accelerate);
 * a failed device column evicts its tenants, which re-enter the rebalance.
 
-Execution is slice-agnostic, as in the JAX package: every admitted tenant's
+Execution is slice-agnostic, as in the JAX package: the manager
+(``TenantMeshManager(mesh, "model")``) decides the grants, but the engine
+builds no tenant sub-mesh, and every admitted tenant's
 :class:`DecodeSession` runs each round on the session's own device.
 ``width_history`` records every (round, tenant, width) grant.
 """

@@ -79,16 +79,28 @@ def _tree_signature(flat: dict[str, tuple[tuple[int, ...], str]]) -> str:
     return h.hexdigest()[:16]
 
 
+def _sync(dm) -> None:
+    """Every rank of the DeviceMesh ``dm`` waits for the others: a barrier
+    over each of its axes' groups in turn (after the last, each rank has
+    met every other through a chain of them); none over an axis of one.
+    The ranks outside ``dm`` take no part."""
+    for group in dm.get_all_groups():
+        if dist.get_world_size(group) > 1:
+            dist.barrier(group)
+
+
 def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None) -> str:
     """Write a checkpoint atomically; returns the committed directory.  A
-    tree of DTensors is saved by all its ranks together (rank 0 writes)."""
+    tree of DTensors is saved by all the ranks of its mesh together (the
+    mesh's first rank writes), and by no other rank: a tenant's sub-mesh
+    saves on its own ranks."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
-    sharded = any(isinstance(t, DTensor) for t in leaves(tree))
-    if sharded and dist.get_rank() != 0:
-        for t in leaves(tree):  # the gathers rank 0 makes
-            if isinstance(t, DTensor):
-                t.full_tensor()
-        dist.barrier()
+    sharded = [t for t in leaves(tree) if isinstance(t, DTensor)]
+    dm = sharded[0].device_mesh if sharded else None
+    if dm is not None and dist.get_rank() != int(dm.mesh.flatten()[0]):
+        for t in sharded:  # the gathers the writer makes
+            t.full_tensor()
+        _sync(dm)
         return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -112,8 +124,8 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
-    if sharded:
-        dist.barrier()
+    if dm is not None:
+        _sync(dm)
     return final
 
 

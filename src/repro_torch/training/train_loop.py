@@ -38,7 +38,6 @@ import math
 from typing import Any, Callable
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch._tree import leaves, tree_map
@@ -157,7 +156,8 @@ def _data_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def sharded_norm(grads: Any, shardings: Any, mesh: Mesh) -> torch.Tensor:
     """The global norm of a gradient held as local shards: each rank's
     squares of a leaf over the number of ranks that hold the same shard,
-    summed over every rank, so that each element counts once.  The ranks
+    summed over every rank of the mesh (and no other: a tenant's sub-mesh
+    sums over its own ranks), so that each element counts once.  The ranks
     that hold one shard hold the same gradient of it: reduced over the
     data axes, and along "model" either this rank's slice's alone or,
     for a leaf whole along "model", equal on every rank (the activations'
@@ -171,8 +171,9 @@ def sharded_norm(grads: Any, shardings: Any, mesh: Mesh) -> torch.Tensor:
 
     per_leaf = leaves(tree_map(part, grads, shardings))
     total = torch.sum(torch.stack(per_leaf))
-    if mesh.size > 1:
-        total = all_reduce_(total, dist.group.WORLD)
+    for ax in mesh.axis_names:  # summed over every rank of the mesh, axis by axis
+        if sizes[ax] > 1:
+            total = all_reduce_(total, mesh.group(ax))
     return torch.sqrt(total)
 
 
@@ -207,12 +208,15 @@ def make_train_step(
     mesh: Mesh,
     train: TrainConfig = TrainConfig(),
     rules: MeshRules = FSDP_TP,
+    donate: bool = True,
 ) -> tuple[Callable, Callable]:
     """(step, jitted): ``step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``, updating params and state in place, and
-    ``jitted(params, opt_state, batch)``, which checks that every leaf is
-    placed by its sharding on ``mesh`` and returns ``step`` (it runs
-    eagerly: there is no compiled form of it here).
+    opt_state, metrics)`` and ``jitted(params, opt_state, batch)``, which
+    checks that every leaf is placed by its sharding on ``mesh`` and
+    returns ``step`` (it runs eagerly: there is no compiled form of it
+    here).  ``donate`` (JAX's ``donate_argnums`` of params and state):
+    the step updates the caller's params and state in place and returns
+    them; with ``False`` it leaves them untouched and returns new trees.
 
     On a mesh that a process group backs, params and state are DTensors
     placed by ``params_shardings`` / ``opt_shardings`` (``init_sharded``,
@@ -221,6 +225,8 @@ def make_train_step(
     leaf lies whole on it."""
 
     def step(params, opt_state, batch):
+        if not donate:
+            params, opt_state = (tree_map(torch.clone, t) for t in (params, opt_state))
         if mesh.device_mesh is None:
             loss, grads = loss_and_grads(cfg, params, batch, train.microbatches)
             metrics = {"loss": loss, "grad_norm": global_norm(grads)}
@@ -258,7 +264,7 @@ def _check_placed(name: str, t, sh: NamedSharding) -> None:
         if t.device != home:
             raise ValueError(f"{name} leaf on {t.device}, the mesh is on {home}")
         return
-    placed = isinstance(t, DTensor) and t.device_mesh is dm
+    placed = isinstance(t, DTensor) and t.device_mesh == dm
     if not placed or tuple(t.placements) != sh.placements:
         got = tuple(t.placements) if isinstance(t, DTensor) else "a plain tensor"
         raise ValueError(
@@ -273,15 +279,34 @@ def opt_shardings(params_tree, mesh: Mesh, rules: MeshRules = FSDP_TP) -> dict:
     return {"master": sh, "m": sh, "v": sh, "step": NamedSharding(mesh, ())}
 
 
+class _ByShard:
+    """The hook (``models.layers.on_each_leaf``) of the sharded draw: the
+    leaves, in the order drawn, each placed by its sharding; an
+    initialiser that draws by shard (``draw``) allocates only this rank's
+    shard of its leaf."""
+
+    def __init__(self, shardings: list):
+        self._todo = iter(shardings)
+
+    def __call__(self, t: torch.Tensor):
+        return next(self._todo).place(t)
+
+    def draw(self, shape, dtype, fill):
+        return next(self._todo).draw(shape, dtype, fill)
+
+
 def init_params_sharded(
     cfg: ModelConfig, mesh: Mesh, seed: int = 0, rules: MeshRules = FSDP_TP
 ) -> Any:
-    """``init_params(cfg, seed)`` placed on ``mesh`` leaf by leaf: each rank
-    draws one leaf whole (the same numbers everywhere, from the same
-    generator in the same order), keeps its shard and frees the whole
-    before drawing the next, so a rank's peak is its shards plus the
-    largest leaf.  The shards are those of the whole tree placed at once,
-    bit for bit."""
+    """``init_params(cfg, seed)`` placed on ``mesh``, no leaf ever held
+    whole: each initialiser is handed its leaf's sharding before it
+    allocates and allocates this rank's shard alone, drawing the whole
+    leaf's row blocks in the generator's order (the same numbers on every
+    rank) and keeping the part of each that falls in the shard.  A rank's
+    peak is its shards plus one draw block (``layers._DRAW_ELEMS`` f32
+    elements, 256 MiB) and rglru's ``lambda``, which is drawn whole in f32
+    ((layers, lru width): 266 KB at recurrentgemma-2b) and then placed.
+    The shards are those of the whole tree placed at once, bit for bit."""
     drawn: list = []
     with on_each_leaf(lambda t: drawn.append(t) or t):
         shapes = init_params(cfg, device="meta")
@@ -289,8 +314,7 @@ def init_params_sharded(
     shardings = [None] * len(drawn)
     for t, sh in zip(leaves(shapes), leaves(params_shardings(shapes, mesh, rules))):
         shardings[order[id(t)]] = sh
-    todo = iter(shardings)
-    with on_each_leaf(lambda t: next(todo).place(t)):
+    with on_each_leaf(_ByShard(shardings)):
         return init_params(cfg, seed, device=mesh.local_device)
 
 

@@ -49,6 +49,7 @@ from repro.serving.kv_cache import DecodeSession as JaxSession
 from repro.serving.kv_cache import Request as JaxRequest
 import repro_torch.configs as PC
 from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
@@ -748,7 +749,9 @@ def test_mixed_family_engine_matches_jax():
     mamba2-780m, through both engines: rounds, widths and tokens agree."""
     rows = {}
     jeng = JaxEngine(JaxManager(make_host_mesh(model=1), "model"))
-    teng = MultiTenantEngine(TenantMeshManager(device_grid("cpu", 1)))
+    teng = MultiTenantEngine(
+        TenantMeshManager(Mesh(device_grid("cpu", 1), ("data", "model")))
+    )
     reqs = {"jax": [], "torch": []}
     for i, arch in enumerate(["llama3.2-3b", "mamba2-780m", "recurrentgemma-2b"]):
         js, ts = _sessions(arch, seed=i, slots=2, max_seq=32, rows=rows)

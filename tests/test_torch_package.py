@@ -1,6 +1,7 @@
 """The port's rules: no JAX, nothing of ``repro``, and CUDA by default."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -226,3 +227,137 @@ def test_kernel_wrapper_never_falls_back_on_an_unknown_device():
     xs = torch.zeros((1, 128, 128), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         partitioned_matmul(xs, torch.zeros((128, 128), device="meta"), [0], [128])
+
+
+# ---------------------------------------------------------------------------
+# the port's public signatures against the reference's
+# ---------------------------------------------------------------------------
+
+# parameter names the port renames on purpose, each with its reason
+RENAMED = {
+    "key": ("gen", "initialisers draw from a torch.Generator (or the meta "
+            "device) where JAX threads a PRNG key"),
+    "axis_name": ("group", "a collective names its process group where JAX "
+                  "names a mesh axis inside shard_map"),
+}
+# parameters only the port has, each with its reason
+PORT_ONLY = {
+    "device": "an entry point that creates tensors takes its device (CUDA by "
+    "default) where JAX uses its default device",
+    "lead": "an initialiser draws stacked weights (layers, experts) as one "
+    "leaf where JAX vmaps it",
+    "live": "decode_step leaves dead rows' cache as it was (the engine's "
+    "ragged batches)",
+    "grad_norm": "AdamW takes the norm the sharded step reduced over the mesh",
+    "lend": "loss_and_grads takes the sharded step's lending of the params",
+}
+# parameters only the reference has: TPU-only
+JAX_ONLY = {
+    "interpret": "Pallas's interpret mode; on a CPU tensor the port's "
+    "wrappers compute the plain version",
+    "vmem_budget_bytes": "a Pallas block's VMEM budget; the CUDA kernels' "
+    "tiles are fixed",
+}
+# names whose difference no rule above covers: (reference's parameters,
+# the port's, the reason); None where the port has no such name
+ACCEPTED = {
+    "repro.models.model.init_params": (
+        ["cfg", "key"], ["cfg", "seed", "device"],
+        "the port seeds its generator from an int where JAX takes a key",
+    ),
+    "repro.models.layers.init_rmsnorm": (
+        ["dim"], ["gen", "dim", "lead"],
+        "every initialiser takes the generator, so the sharded draw sees "
+        "each leaf in its order",
+    ),
+    "repro.models.layers.init_layernorm": (
+        ["dim"], ["gen", "dim", "lead"],
+        "every initialiser takes the generator, so the sharded draw sees "
+        "each leaf in its order",
+    ),
+    "repro.launch.steps.Lowerable": (
+        ["jitted", "args", "kind", "arch_id", "cell_name"],
+        ["step", "args", "in_shardings", "out_shardings", "kind", "arch_id",
+         "cell_name", "mesh", "sharded"],
+        "the port has no jitted form: it carries the eager step and its "
+        "shardings for the dry run's fake-group partition",
+    ),
+    "repro.kernels.partitioned_matmul.block_vmem_bytes": (
+        ["block_t", "block_k", "block_n", "x_dtype", "w_dtype"], None,
+        "a Pallas block's VMEM bytes: TPU-only",
+    ),
+}
+
+_SIGNATURES = r"""
+import importlib, inspect, json, os, sys
+root = sys.argv[1]
+out = {}
+for dirpath, _, files in os.walk(os.path.join(root, "repro")):
+    for f in sorted(files):
+        if not f.endswith(".py"):
+            continue
+        rel = os.path.relpath(os.path.join(dirpath, f), root)[:-3]
+        name = rel.replace(os.sep, ".").removesuffix(".__init__")
+        mod = importlib.import_module(name)
+        port = importlib.import_module("repro_torch" + name[len("repro"):])
+        for attr, obj in vars(mod).items():
+            public = not attr.startswith("_") and getattr(obj, "__module__", "") == name
+            if not (public and (inspect.isfunction(obj) or inspect.isclass(obj))):
+                continue
+            try:
+                mine = list(inspect.signature(obj).parameters)
+            except (TypeError, ValueError):
+                continue
+            other = getattr(port, attr, None)
+            theirs = other and list(inspect.signature(other).parameters)
+            out[name + "." + attr] = [mine, theirs]
+print(json.dumps(out))
+"""
+
+
+def test_public_signatures_match_the_reference():
+    """Every public function and class of every ``repro`` module has its
+    counterpart in ``repro_torch`` with the same parameter names, but for
+    the differences tabled above with their reasons (each used, none
+    stale).  Read in a fresh interpreter: importing the reference's dry
+    run sets ``XLA_FLAGS`` for the whole process."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _SIGNATURES, os.path.join(ROOT, "src")],
+        capture_output=True,
+        text=True,
+        env=env,
+        timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    found = json.loads(out.stdout)
+    assert len(found) > 200
+    used, wrong = set(), []
+    for name, (ref, port) in found.items():
+        if name in ACCEPTED:
+            used.add(name)
+            if ACCEPTED[name][:2] != (ref, port):
+                wrong.append((name, ref, port))
+            continue
+        if port is None:
+            wrong.append((name, ref, port))
+            continue
+        # a rename where the port has the new name (``split_by``'s key stays)
+        renames = {p for p in ref if p in RENAMED and RENAMED[p][0] in port}
+        renamed = [
+            RENAMED[p][0] if p in renames else p for p in ref if p not in JAX_ONLY
+        ]
+        kept = [p for p in port if p not in PORT_ONLY]
+        used |= renames | {p for p in ref if p in JAX_ONLY}
+        used |= {p for p in port if p in PORT_ONLY}
+        if renamed != kept:
+            wrong.append((name, ref, port))
+    assert wrong == []
+    table = set(RENAMED) | set(PORT_ONLY) | set(JAX_ONLY) | set(ACCEPTED)
+    assert table - used == set()
+    for repaired in (
+        "repro.distributed.tenancy.TenantMeshManager",
+        "repro.training.train_loop.make_train_step",
+    ):
+        assert repaired not in ACCEPTED
+        assert found[repaired][0] == found[repaired][1]

@@ -29,6 +29,7 @@ from repro.serving.kv_cache import DecodeSession as JaxSession
 from repro.serving.kv_cache import Request as JaxRequest
 from repro_torch.configs import get
 from repro_torch.distributed.tenancy import TenantMeshManager, device_grid
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving.engine import MultiTenantEngine
 from repro_torch.serving.kv_cache import DecodeSession, Request
@@ -59,6 +60,11 @@ class _FakeMesh:
     def __init__(self, model_cols: int):
         self.axis_names = ("data", "model")
         self.devices = np.empty((1, model_cols), dtype=object)
+
+
+def _mesh(cols: int) -> Mesh:
+    """The port's (1, cols) CPU mesh, ``_FakeMesh``'s shape."""
+    return Mesh(device_grid("cpu", cols), ("data", "model"))
 
 
 def _record(session, rows: dict, is_jax: bool):
@@ -174,7 +180,7 @@ def _engine_pair(cols, policy, tenants, rows):
     ``tenants`` is a list of (name, params index, flops_per_token)."""
     jmesh = make_host_mesh(model=1) if cols == 1 else _FakeMesh(cols)
     jeng = JaxEngine(JaxManager(jmesh, "model"), policy=policy)
-    teng = MultiTenantEngine(TenantMeshManager(device_grid("cpu", cols)), policy=policy)
+    teng = MultiTenantEngine(TenantMeshManager(_mesh(cols)), policy=policy)
     for name, i, fpt in tenants:
         js, ts = _sessions(i, rows=rows)
         jeng.add_tenant(name, js, flops_per_token=fpt)
@@ -280,7 +286,7 @@ def test_unknown_policy_lists_the_ported_ones():
     # every policy of the JAX registry is ported, so the listing names all
     # nine; an unregistered name still raises
     with pytest.raises(ValueError, match=".*".join(sorted(ALL_POLICIES))):
-        TenantMeshManager(device_grid("cpu", 2), policy="nonesuch").rebalance()
+        TenantMeshManager(_mesh(2), policy="nonesuch").rebalance()
 
 
 class TestTenancyParity:
@@ -350,7 +356,7 @@ class TestTenancyParity:
     def test_manager_scripts_match_jax(self, policy, seed):
         rng = np.random.default_rng(seed)
         cols = int(rng.integers(2, 7))
-        mine = TenantMeshManager(device_grid("cpu", cols), policy=policy)
+        mine = TenantMeshManager(_mesh(cols), policy=policy)
         theirs = JaxManager(_FakeMesh(cols), "model", policy=policy)
         names = []
         for step in range(40):
@@ -385,4 +391,5 @@ class TestTenancyParity:
         for name in names:
             if mine.tenant(name).partition is not None:
                 sub = mine.submesh(name)
-                assert sub.shape == (1, mine.tenant(name).partition.cols)
+                assert sub.devices.shape == (1, mine.tenant(name).partition.cols)
+                assert sub.axis_names == ("data", "model")

@@ -705,3 +705,27 @@ def test_train_cli_killed_and_resumed(tmp_path):
     second, out = _train_cli(tmp_path / "b")
     assert "resumed from step 3" in out and sorted(second) == [4, 5, 6]
     assert {**first, **second} == full
+
+
+def test_ssd_gradient_is_finite_where_the_decay_overflows():
+    """mamba2-780m's smoke config with a decay fast enough that, above the
+    chunk's diagonal, exp(cum_i - cum_j) overflows f32 (as the published
+    width reaches with random weights: its first gradient is NaN in the
+    JAX package).  The reference exponentiates before it masks, so its
+    gradient is NaN (0 · inf); the port masks first: the same loss within
+    3e-2, every gradient finite."""
+    arch = "mamba2-780m"
+    jp, _ = _jax_params(arch)
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, x: jnp.full_like(x, 4.0)
+        if path[-1].key in ("A_log", "dt_bias") else x,
+        jp,
+    )
+    tp = _to_port(jp)
+    cfg, jcfg = PC.get(arch).smoke, JC.get(arch).smoke
+    jb, tb = _batches(cfg.vocab, 2, 64)
+    jloss, jgrads = JT.loss_and_grads(jcfg, jp, jb)
+    tloss, tgrads = TT.loss_and_grads(cfg, tp, tb)
+    assert not all(bool(jnp.isfinite(g).all()) for g in jax.tree.leaves(jgrads))
+    assert all(bool(torch.isfinite(g).all()) for g in leaves(tgrads))
+    assert _rel(tloss, jloss) < BF16_TOL
