@@ -110,6 +110,22 @@ check:
    3 of (1, 4) are drawn for real, one after the other: resident bytes
    against the specs' shard bytes, the peak (at most 1 GB above the
    resident bytes) and the seconds.
+   Examples: in a child process (``chip_smoke.py --examples``, in a
+   session of its own under ``EXAMPLES_TIMEOUT_S``), each program of
+   ``examples_torch/`` through its ``main(argv)``: the six host examples
+   with their default flags (host arithmetic; ``overload_serving`` forks
+   two pods), then ``multi_tenant_serving`` on the card, on the CPU and on
+   the card with ``--full`` (llama3.2-3b, mamba2-780m and
+   recurrentgemma-2b at their published widths, 16 GB of bf16 weights),
+   ``partitioned_training`` and ``quickstart`` on the card.  Per example:
+   wall s, partitioned-GEMM launches by kernel (counters zeroed before
+   each) and the card's peak GB.  Every example returns; only
+   ``quickstart`` launches a partitioned-GEMM kernel, and each of its
+   part-2 outputs equals ``kernels.matmul_ref`` on the same operands
+   within 1e-4; ``multi_tenant_serving`` prints the same text on the card
+   as on the CPU; ``--full`` drains every tenant (rounds, tokens/s a
+   tenant); ``partitioned_training`` restores llama's step 20 and every
+   tenant's losses are finite and fall.
 4. Paper: the port's front door, ``Session(policy, "sim").run(workload)``,
    for each of the nine registered policies on the paper's heavy and light
    workloads (Fig. 9).  This path is host arithmetic (Python and NumPy) and
@@ -320,6 +336,18 @@ DRAW_SHARDS = (((1, 4), 0), ((1, 4), 3), ((16, 16), 0), ((16, 16), 255))
 DRAW_BIG, DRAW_BIG_RANKS = "dbrx-132b", (0, 3)
 DRAW_PEAK_SLACK = 1e9  # a rank's draw peak may exceed its shards by one GB
 DRAW_TIMEOUT_S = 300
+EXAMPLES_FLAG = "--examples"  # the child process of the examples phase
+EXAMPLES_TIMEOUT_S = 180  # the child takes 33-40 s on an H100 80GB HBM3 at 700 W
+EXAMPLES_DIR = "build/examples"  # gitignored; trace_viewer writes its files here
+HOST_EXAMPLES = (
+    "open_loop_serving",
+    "fair_sharing",
+    "chaos_serving",
+    "memory_contention",
+    "overload_serving",
+    "trace_viewer",
+)
+EXAMPLE_TOL = 1e-4  # tests/test_kernels.py's f32 rtol and atol
 DECODE_HEADROOM = 4e9  # free bytes a rank needs to decode a model served whole
 # AdamW's bytes a parameter: the bf16 grad read, the f32 master, m and v read
 # and written, the bf16 param written
@@ -2196,6 +2224,158 @@ def draw_check(torch) -> dict:
     return stats
 
 
+def _example_runs(device: str) -> list:
+    cpu = ["--device", "cpu"]
+    card = ["--device", device]
+    return [(name, []) for name in HOST_EXAMPLES] + [
+        ("multi_tenant_serving", card),
+        ("multi_tenant_serving", cpu),
+        ("multi_tenant_serving", card + ["--full"]),
+        ("partitioned_training", card),
+        ("quickstart", card),
+    ]
+
+
+def _finite_and_falling(losses: list, what: str) -> None:
+    check(all(math.isfinite(x) for x in losses), f"{what}: losses {losses}")
+    check(losses[-1] < losses[0], f"{what}: losses do not fall {losses}")
+
+
+def examples_child(device: str = "cuda") -> int:
+    """The examples phase, in a process of its own: each program of
+    ``examples_torch/`` run through its ``main(argv)`` (``_example_runs``),
+    its text kept, timed, its partitioned-GEMM launches counted from zero
+    and the card's peak read; the checks of the phase on what each
+    returns.  The host examples run first, before this process holds any
+    CUDA state, since ``overload_serving`` forks pods.  Prints one JSON
+    line."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 1
+    import repro_torch.kernels as K
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    out_dir = root / EXAMPLES_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    os.chdir(out_dir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, texts, got = [], {}, {}
+    for name, argv in _example_runs(device):
+        main = importlib.import_module(f"examples_torch.{name}").main
+        on_card = torch.cuda.is_initialized()
+        if on_card:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            data = main(argv)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = K.launch_counts()
+        key = " ".join([name, *argv])
+        check(isinstance(data, dict) and data, f"examples: {key} returned {data!r}")
+        texts[key], got[key] = text.getvalue(), data
+        rows.append(
+            {
+                "example": key,
+                "s": seconds,
+                "launches": launches,
+                "peak_gb": (
+                    torch.cuda.max_memory_allocated() / 1e9
+                    if torch.cuda.is_initialized()
+                    else 0.0
+                ),
+                "lines": len(texts[key].splitlines()),
+            }
+        )
+        if name == "quickstart":
+            check(sum(launches.values()) >= 1, f"examples: {key} launched {launches}")
+        else:
+            check(sum(launches.values()) == 0, f"examples: {key} launched {launches}")
+        if name in HOST_EXAMPLES:
+            check(not torch.cuda.is_initialized(), f"examples: {key} used the card")
+        print(f"examples: {json.dumps(rows[-1])}", file=sys.stderr, flush=True)
+
+    card, cpu = (f"multi_tenant_serving --device {d}" for d in (device, "cpu"))
+    check(texts[card] == texts[cpu], "examples: multi_tenant_serving card != CPU text")
+    full = got[f"{card} --full"]
+    check(full["drained"], "examples: --full did not drain")
+    check(all(n > 0 for n in full["tokens"].values()), f"examples: {full['tokens']}")
+    train = got[f"partitioned_training --device {device}"]
+    check(train["restored_step"] == 20, f"examples: restored {train['restored_step']}")
+    for tenant, losses in train["losses"].items():
+        _finite_and_falling(losses, f"examples: partitioned_training {tenant}")
+    quick = got[f"quickstart --device {device}"]
+    _finite_and_falling(quick["train"]["losses"], "examples: quickstart")
+    gemm = quick["gemm"]
+    errs = []
+    for i, (x, w, o) in enumerate(zip(gemm["xs"], gemm["ws"], gemm["outs"])):
+        want = K.matmul_ref(x, w)
+        errs.append(float((o - want).abs().max()))
+        near = torch.allclose(o, want, rtol=EXAMPLE_TOL, atol=EXAMPLE_TOL)
+        check(near, f"examples: quickstart tenant {i} max err {errs[-1]}")
+    peak = {r["example"]: r["peak_gb"] for r in rows}
+    rate = {k: n / full["decode_s"] for k, n in full["tokens"].items()}
+    losses = {f"partitioned_training {k}": v for k, v in train["losses"].items()}
+    losses["quickstart"] = quick["train"]["losses"]
+    out = {
+        "runs": rows,
+        "full": {
+            "rounds": full["rounds"],
+            "decode_s": full["decode_s"],
+            "tokens": full["tokens"],
+            "tokens_per_s": rate,
+            "peak_gb": peak[f"{card} --full"],
+        },
+        "quickstart_gemm": {
+            "shapes": [[*x.shape, w.shape[1]] for x, w in zip(gemm["xs"], gemm["ws"])],
+            "max_abs_err_vs_plain": errs,
+            "max_err_vs_matmul": gemm["max_err"],
+        },
+        "first_last_loss": {k: [v[0], v[-1]] for k, v in losses.items()},
+    }
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def examples_phase(torch) -> dict:
+    """The examples phase (``examples_child``) in a fresh interpreter, in a
+    session of its own, within ``EXAMPLES_TIMEOUT_S`` (the child and the
+    pods it forks are killed there): its numbers, or its failure."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), EXAMPLES_FLAG],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        text=True,
+        start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=EXAMPLES_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        raise AssertionError(f"examples over {EXAMPLES_TIMEOUT_S} s:\n{err[-4000:]}")
+    for line in err.splitlines():
+        if line.startswith("examples: "):
+            log(line)
+    check(proc.returncode == 0, f"the examples phase failed:\n{err[-4000:]}")
+    stats = json.loads(out.strip().splitlines()[-1])
+    stats["phase_s"] = time.perf_counter() - t0
+    stats["card"] = card_line()
+    log(f"examples: {json.dumps(stats)}")
+    return stats
+
+
 def tenancy_across(torch, mesh, one: dict) -> dict:
     """On several cards (``--placement-only``): ``TenantMeshManager(mesh,
     "model", policy="equal")`` gives llama3.2-3b and mamba2-780m a column
@@ -3674,6 +3854,8 @@ def main() -> int:
         return placement_only(sys.argv[2:])
     if sys.argv[1:] == [DRAW_FLAG]:
         return draw_child()
+    if sys.argv[1:] == [EXAMPLES_FLAG]:
+        return examples_child()
     import torch
 
     if not torch.cuda.is_available():
@@ -3692,6 +3874,7 @@ def main() -> int:
     train = train_phase(torch, K)
     placement_phase(torch, K, train)
     draw_check(torch)
+    examples_phase(torch)
     paper_phase(K)
     serve_phase()
     mesh_phase(torch, K)

@@ -12,12 +12,16 @@ torch = pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
+EXAMPLES = os.path.join(ROOT, "examples_torch")
 
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    files += [
+        os.path.join(EXAMPLES, n) for n in os.listdir(EXAMPLES) if n.endswith(".py")
+    ]
     return sorted(files)
 
 
@@ -121,6 +125,7 @@ LAUNCH_PATH = [
 def test_scan_sees_every_module():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
+    assert os.path.join(EXAMPLES, "quickstart.py") in files
     paths = PAPER_PATH + SERVE_PATH + RESILIENCE_PATH + TRAIN_PATH + LAUNCH_PATH
     for rel in paths:
         assert os.path.join(PORT, *rel.split("/")) in files, rel
@@ -186,6 +191,9 @@ def _creating_calls():
 
     cfg = get("llama3.2-3b").smoke
     card = Mesh(device_grid("cuda", 1), ("data", "model"))  # what make_host_mesh gives
+    sys.path.insert(0, ROOT)
+    from examples_torch import multi_tenant_serving, partitioned_training, quickstart
+
     return {
         "init_params": lambda: init_params(cfg),
         "init_cache": lambda: init_cache(cfg, 1, 8),
@@ -196,6 +204,9 @@ def _creating_calls():
         "make_host_mesh": lambda: make_host_mesh(),
         "launch.train.main": lambda: train.main(["--smoke", "--steps", "1"]),
         "launch.serve.main": lambda: serve.main(["--requests", "1"]),
+        "examples_torch/multi_tenant_serving": lambda: multi_tenant_serving.main([]),
+        "examples_torch/partitioned_training": lambda: partitioned_training.main([]),
+        "examples_torch/quickstart": lambda: quickstart.main([]),
     }
 
 
@@ -211,6 +222,9 @@ def _creating_calls():
         "make_host_mesh",
         "launch.train.main",
         "launch.serve.main",
+        "examples_torch/multi_tenant_serving",
+        "examples_torch/partitioned_training",
+        "examples_torch/quickstart",
     ],
 )
 def test_creating_entry_points_default_to_cuda(entry, monkeypatch):
