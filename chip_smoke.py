@@ -25,11 +25,11 @@ check:
    the tenants' own tensors (the main path), and ``sequential_tenant_gemm``
    (one ``torch.matmul`` per tenant) as the library yardstick; each kernel's
    device time comes from ``torch.profiler`` and each entry point's host
-   enqueue time from the host clock.  The ``FusedGemmStats`` of every
-   full-width main-path call are folded (``record_gemm_stats``) into one
-   ``repro_torch.obs.MetricsRegistry`` with the host caches
-   (``snapshot_host_caches``), outside the timed loops; the call count is
-   checked and the registry printed.
+   enqueue time from the host clock.  Every main-path call's launch
+   counters (``launch_stats``) are checked: one launch, as many CTAs as its
+   launch table's grid; the host caches (``snapshot_host_caches``) are
+   folded into one ``repro_torch.obs.MetricsRegistry`` outside the timed
+   loops and printed with the counters.
 3. Serving: a ``MultiTenantEngine`` over the card as one column serves two
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
@@ -583,33 +583,35 @@ def device_profile(torch, fn, calls: int) -> tuple[float, float, list]:
     return wall_ms, sum(ms for _, ms in rows), rows[:6]
 
 
-def kernel_registry(K, results: dict) -> None:
-    """Fold the ``FusedGemmStats`` of every full-width main-path call into
-    one ``repro_torch.obs.MetricsRegistry`` (``record_gemm_stats``), then
-    the host caches (``snapshot_host_caches``, the autotuner's included);
-    check the call count and that the autotuner was consulted; print the
-    registry and its summary.  Runs after the main path, outside every
-    timed loop."""
+def kernel_registry(K, mixes: dict, calls: dict) -> None:
+    """Check every main-path call's launch counters (``launch_stats``, read
+    before and after it): one launch, and as many CTAs as its launch table's
+    grid.  Then fold the host caches (``snapshot_host_caches``, the
+    autotuner's included) into one ``repro_torch.obs.MetricsRegistry``,
+    check that the autotuner was consulted, and print the counters, the
+    registry and its summary.  Runs after the main path, outside every timed
+    loop."""
     from repro_torch.obs import MetricsRegistry
     from repro_torch.obs.render import render_summary, snapshot_host_caches
 
+    for (mix, dt, mode), (before, after) in calls.items():
+        shapes = tuple(mixes[mix][0])
+        lds = tuple(k for _, k, _ in shapes), tuple(n for _, _, n in shapes)
+        grid = K.tenant_table(shapes, *lds, mode == "dense").grid
+        launches = sum(after["launches"].values()) - sum(before["launches"].values())
+        ctas = after["ctas"] - before["ctas"]
+        check(
+            launches == 1 and ctas == grid,
+            f"{mix} {dt} {mode}: {launches} launches, {ctas} CTAs, grid {grid}",
+        )
     registry = MetricsRegistry()
-    calls = 0
-    for (mix, _dt, _mode), (_, stats) in results.items():
-        if mix in FULL_WIDTH:
-            K.record_gemm_stats(registry, stats)
-            calls += 1
     snapshot_host_caches(registry)
     counters = {k: c.value for k, c in registry.counters.items()}
-    want = len(FULL_WIDTH) * len(DTYPES) * len(MODES)
-    check(
-        counters["kernel.gemm.calls"] == calls == want,
-        f"kernel.gemm.calls {counters['kernel.gemm.calls']}, {calls} calls",
-    )
     tuned = counters["kernel.autotune.hits"] + counters["kernel.autotune.misses"]
     check(tuned >= 1, "the block autotuner was never consulted")
+    log(f"launch stats: {json.dumps(K.launch_stats())}")
     log(f"kernel registry: {json.dumps(registry.as_dict())}")
-    log(render_summary(registry, title="kernel path, full-width rounds"))
+    log(render_summary(registry, title="kernel path, host caches"))
 
 
 def kernel_phase(torch, K, details: dict) -> list[dict]:
@@ -625,26 +627,20 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
 
     # -- the main path: fused_tenant_gemm, counters zeroed just before ------
     K.reset_launch_counts()
-    results = {}
+    results, calls = {}, {}
     for (mix, dt), (xs, ws) in inputs.items():
         bt, bk, bn = blocks[mix, dt]
         for mode in MODES:
-            before = sum(K.launch_counts().values())
+            before = K.launch_stats()
             results[mix, dt, mode] = K.fused_tenant_gemm(
-                xs,
-                ws,
-                block_t=bt,
-                block_k=bk,
-                block_n=bn,
-                grid_mode=mode,
-                return_stats=True,
+                xs, ws, block_t=bt, block_k=bk, block_n=bn, grid_mode=mode
             )
-            check(sum(K.launch_counts().values()) == before + 1, mode)
+            calls[mix, dt, mode] = before, K.launch_stats()
     torch.cuda.synchronize()
     launches = K.launch_counts()
     log(f"main path launches: {launches}")
     check(all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}")
-    kernel_registry(K, results)
+    kernel_registry(K, mixes, calls)
 
     # -- each kernel against its plain version ------------------------------
     errs = {m: {"abs": 0.0, "rel": 0.0} for m in MODES}
@@ -661,7 +657,7 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
         vt_d = torch.from_numpy(vt).cuda()
         plain = K.partitioned_matmul_ref(xs_pad, w_pad, owner_d, vt_d, bn)
         for mode in MODES:
-            outs, _ = results[mix, dt, mode]
+            outs = results[mix, dt, mode]
             col = 0
             for (t, _, n), out in zip(shapes, outs):
                 check(out.is_contiguous() and out.shape == (t, n), "output layout")

@@ -15,16 +15,22 @@ from repro_torch.kernels.partitioned_matmul import (
     BlockAccounting,
     LaunchTable,
     grid_accounting,
-    launch_counts,
     launch_table,
     live_block_tables,
     partitioned_matmul,
-    reset_launch_counts,
     stacked_table,
     tenant_matmul,
     tenant_table,
 )
 from repro_torch.kernels.ref import matmul_ref, partitioned_matmul_ref
+from repro_torch.kernels.tracing import (
+    TableCounts,
+    launch_counts,
+    launch_stats,
+    reset_launch_counts,
+    reset_launch_stats,
+    set_tracing,
+)
 
 __all__ = [
     "BLOCK_CANDIDATES",
@@ -32,11 +38,13 @@ __all__ = [
     "FusedGemmStats",
     "GRID_MODES",
     "LaunchTable",
+    "TableCounts",
     "autotune_blocks",
     "build_owner_map",
     "fused_tenant_gemm",
     "grid_accounting",
     "launch_counts",
+    "launch_stats",
     "launch_table",
     "live_block_tables",
     "matmul_ref",
@@ -45,7 +53,9 @@ __all__ = [
     "partitioned_matmul_ref",
     "record_gemm_stats",
     "reset_launch_counts",
+    "reset_launch_stats",
     "sequential_tenant_gemm",
+    "set_tracing",
     "stacked_table",
     "tenant_matmul",
     "tenant_table",

@@ -106,6 +106,8 @@ LAYOUT_FIELDS = (
     "zero_rows",
     "smem_float32",
     "smem_bfloat16",
+    "k_slice_float32",
+    "k_slice_bfloat16",
 )
 
 

@@ -654,6 +654,8 @@ int pm_layout(int* v) {
   v[11] = ZERO_ROWS;
   v[12] = smem_bytes<float>();
   v[13] = smem_bytes<__nv_bfloat16>();
+  v[14] = Cfg<float>::BK;
+  v[15] = Cfg<__nv_bfloat16>::BK;
   return 0;
 }
 

@@ -26,11 +26,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import tracing
 from repro_torch.kernels.partitioned_matmul import (
     BlockAccounting,
+    _tenant_matmul,
     grid_accounting,
     partitioned_matmul,
-    tenant_matmul,
 )
 
 # candidate partition-block edge lengths the autotuner searches per dimension
@@ -246,7 +247,13 @@ def fused_tenant_gemm(
     Block sizes left as ``None`` are autotuned per geometry (see
     :func:`autotune_blocks`); ``grid_mode`` is ``"dense"``, ``"compact"``
     or ``"auto"`` (compact exactly when the ragged mix leaves dead blocks).
+
+    With tracing armed (``tracing.set_tracing``), a card call times its
+    four host phases and, under a profiler, marks them as spans.
     """
+    clock = None
+    if tracing.armed and xs and xs[0].device.type == "cuda":
+        clock = tracing.Clock()
     if len(xs) != len(ws) or not xs:
         raise ValueError("need one (x, w) pair per tenant")
     for i, (xsh, wsh) in enumerate(zip([x.shape for x in xs], [w.shape for w in ws])):
@@ -284,11 +291,12 @@ def fused_tenant_gemm(
         grid_mode = "compact" if probe.blocks_live < probe.blocks_total else "dense"
 
     if on_card:
-        outs = tenant_matmul(
+        outs = _tenant_matmul(
             [x if x.dtype == x_dt else x.to(x_dt) for x in xs],
             [w if w.dtype == w_dt else w.to(w_dt) for w in ws],
             shapes,
             grid_mode == "dense",
+            clock,
         )
     else:
         out = partitioned_matmul(

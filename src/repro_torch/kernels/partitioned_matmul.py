@@ -43,8 +43,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tracing
 from repro_torch.kernels.ref import partitioned_matmul_ref
+from repro_torch.kernels.tracing import TableCounts
 
 DEFAULT_BLOCK_T = 128
 DEFAULT_BLOCK_K = 128
@@ -53,22 +54,6 @@ DEFAULT_BLOCK_N = 128
 _ALLOWED_DTYPES = (torch.bfloat16, torch.float32)
 
 GRID_MODES = ("dense", "compact")
-
-# launches of each kernel in this process; each wrapper adds one where it
-# launches its kernel and nowhere else (the CPU path launches nothing)
-dense_launches = 0
-compact_launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches since the process started or the last reset."""
-    return {"dense": dense_launches, "compact": compact_launches}
-
-
-def reset_launch_counts() -> None:
-    global dense_launches, compact_launches
-    dense_launches = compact_launches = 0
-
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
@@ -286,13 +271,15 @@ def grid_accounting(
 # ---------------------------------------------------------------------------
 
 # CTA geometry and table capacity of csrc/partitioned_matmul.cu (BM, BN,
-# ZERO_ROWS, MAX_TENANTS, MAX_SEGMENTS); ``_layout`` holds them against the
-# built library
+# ZERO_ROWS, MAX_TENANTS, MAX_SEGMENTS, the K slices); ``_layout`` holds them
+# against the built library
 TILE_ROWS = 64
 TILE_COLS = 64
 ZERO_ROWS = 256
 MAX_TENANTS = 64
 MAX_SEGMENTS = 256
+# depth one K-loop step covers, float32 then bfloat16 (Cfg<T>::BK)
+K_SLICES = (16, 32)
 
 
 class Tenant(NamedTuple):
@@ -360,6 +347,40 @@ class LaunchTable:
             off += _SEGMENT.size
         return blob
 
+    @functools.cached_property
+    def launched(self) -> list[int]:
+        """The table's launches, in float32 and in bfloat16, since the launch
+        counters last summed them (``tracing``)."""
+        return [0, 0]
+
+    @functools.cached_property
+    def counts(self) -> tuple[TableCounts, TableCounts]:
+        """What one launch of the table does, in float32 and in bfloat16
+        (:class:`TableCounts`, indexed by ``bf16``), from the walk
+        ``run_cta`` makes: a tile at or past the tenant's live rows writes
+        zeros, unless it is past the caller's rows (dense), where it
+        exits."""
+        mac = fill = useful = 0
+        steps = [0] * len(K_SLICES)  # K-loop depth the MAC CTAs cover
+        for s in self.segments:
+            t = self.tenants[s.tenant]
+            col_tiles = _ceil_div(s.cols, TILE_COLS)
+            live = _ceil_div(t.rows, TILE_ROWS)
+            if self.dense:
+                dead = _ceil_div(t.out_rows, TILE_ROWS) - live
+            else:
+                dead = max(0, _ceil_div(t.out_rows - live * TILE_ROWS, ZERO_ROWS))
+            mac += col_tiles * live
+            fill += col_tiles * dead
+            useful += t.rows * t.depth * s.cols
+            for j, bk in enumerate(K_SLICES):
+                steps[j] += col_tiles * live * _ceil_div(t.depth, bk) * bk
+        tile = TILE_ROWS * TILE_COLS
+        return tuple(
+            TableCounts(int(self.dense), self.grid, mac, fill, tile * k, useful)
+            for k in steps
+        )
+
 
 def launch_table(tenants, segments, *, dense: bool) -> LaunchTable:
     """Schedule ``segments`` (each naming a tenant of ``tenants``) as one
@@ -403,6 +424,7 @@ def stacked_table(xs_shape, N, owner, valid_t, valid_k, block_n, dense):
     ints or tuples of ints; cached per geometry): buffer 0 is ``xs`` (E, T,
     K), 1 is ``w`` (K, N), 2 the (T, N) output.  Adjacent column blocks of
     one owner form one segment."""
+    tracing.count_table_build()
     E, T, K = xs_shape
     tenants = [
         Tenant(0, e * T * K, K, min(max(vt, 0), T), min(max(vk, 0), K), T)
@@ -425,6 +447,7 @@ def tenant_table(shapes, ldx, ldw, dense):
     x_i (row stride ``ldx[i]``), ``E + i`` is w_i (row stride ``ldw[i]``)
     and ``2 E + i`` the contiguous ``(T_i, N_i)`` output.  Only the tenants'
     own rows are scheduled."""
+    tracing.count_table_build()
     E = len(shapes)
     tenants = [Tenant(i, 0, ldx[i], t, k, t) for i, (t, k, _) in enumerate(shapes)]
     segments = [
@@ -459,6 +482,8 @@ def _layout() -> dict[str, int]:
         "tile_rows": TILE_ROWS,
         "tile_cols": TILE_COLS,
         "zero_rows": ZERO_ROWS,
+        "k_slice_float32": K_SLICES[0],
+        "k_slice_bfloat16": K_SLICES[1],
     }
     bad = {k: (lay[k], v) for k, v in want.items() if lay[k] != v}
     if bad:
@@ -494,14 +519,18 @@ def _check_device(index: int) -> None:
         )
 
 
-def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device) -> None:
+def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device, clock) -> None:
     """Launch ``table`` on ``device``'s current stream (no launch when it
-    schedules no CTA) and count it."""
-    global dense_launches, compact_launches
+    schedules no CTA) and count it; ``clock`` (armed calls only) marks the
+    end of the table phase and of the launch phase."""
     if table.grid == 0:
+        if clock is not None:
+            clock.finish()
         return
-    _check_device(device.index)
     blob = _pack(table, bufs)
+    if clock is not None:
+        clock.mark()
+    _check_device(device.index)
     if _raw_stream is not None:
         stream = _raw_stream(device.index)
     else:
@@ -513,13 +542,15 @@ def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device) -> None:
     else:
         with torch.cuda.device(device):
             err = lib.pm_launch(*args)
-    name = "dense" if table.dense else "compact"
     if err:
+        name = "dense" if table.dense else "compact"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    if table.dense:
-        dense_launches += 1
-    else:
-        compact_launches += 1
+    launched = table.launched
+    launched[bf16] += 1
+    if launched[bf16] == 1:
+        tracing.watch(table.counts[bf16], launched, bf16)
+    if clock is not None:
+        clock.mark()
 
 
 def tenant_matmul(xs, ws, shapes, dense: bool) -> list[torch.Tensor]:
@@ -530,6 +561,12 @@ def tenant_matmul(xs, ws, shapes, dense: bool) -> list[torch.Tensor]:
     contiguous first).  ``shapes`` are the ``(T_i, K_i, N_i)``; the operands
     are CUDA tensors on one device, all of one dtype (the caller's check),
     bfloat16 or float32."""
+    clock = tracing.Clock() if tracing.armed else None
+    return _tenant_matmul(xs, ws, shapes, dense, clock)
+
+
+def _tenant_matmul(xs, ws, shapes, dense, clock) -> list[torch.Tensor]:
+    """:func:`tenant_matmul`, in the phases of ``clock`` where armed."""
     device, dtype = xs[0].device, xs[0].dtype
     if dtype not in _ALLOWED_DTYPES:
         raise TypeError(f"operand dtype {dtype} unsupported: bfloat16 or float32")
@@ -545,11 +582,15 @@ def tenant_matmul(xs, ws, shapes, dense: bool) -> list[torch.Tensor]:
         operands.append(a)
         lds.append(stride[0])
     E = len(xs)
+    if clock is not None:
+        clock.mark()
     outs = [
         torch.empty((t, n), dtype=torch.float32, device=device) for t, _, n in shapes
     ]
+    if clock is not None:
+        clock.mark()
     table = tenant_table(shapes, tuple(lds[:E]), tuple(lds[E:]), dense)
-    _launch(table, (*operands, *outs), dtype == torch.bfloat16, device)
+    _launch(table, (*operands, *outs), dtype == torch.bfloat16, device, clock)
     return outs
 
 
@@ -590,6 +631,7 @@ def partitioned_matmul(
     dead rows, in the same launch) — identical results.
     Operands must be bfloat16 or float32 (mixed pairs promote to float32).
     """
+    clock = tracing.Clock() if tracing.armed and xs.device.type == "cuda" else None
     xs, w = _validate_promote(xs, w)
     E, T, K = xs.shape
     K2, N = w.shape
@@ -627,7 +669,11 @@ def partitioned_matmul(
         raise ValueError(f"xs is on {xs.device} but w is on {w.device}")
     if not (xs.is_contiguous() and w.is_contiguous()):
         raise ValueError("the CUDA kernels need contiguous xs and w")
+    if clock is not None:
+        clock.mark()
     out = torch.empty((T, N), dtype=torch.float32, device=xs.device)
+    if clock is not None:
+        clock.mark()
     table = stacked_table(
         (E, T, K),
         N,
@@ -637,6 +683,6 @@ def partitioned_matmul(
         block_n,
         grid_mode == "dense",
     )
-    _launch(table, (xs, w, out), xs.dtype == torch.bfloat16, xs.device)
+    _launch(table, (xs, w, out), xs.dtype == torch.bfloat16, xs.device, clock)
     return out
 
