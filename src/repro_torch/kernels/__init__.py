@@ -18,6 +18,7 @@ from repro_torch.kernels.partitioned_matmul import (
     launch_table,
     live_block_tables,
     partitioned_matmul,
+    sm_count,
     stacked_table,
     tenant_matmul,
     tenant_table,
@@ -56,6 +57,7 @@ __all__ = [
     "reset_launch_stats",
     "sequential_tenant_gemm",
     "set_tracing",
+    "sm_count",
     "stacked_table",
     "tenant_matmul",
     "tenant_table",

@@ -101,8 +101,11 @@ LAYOUT_FIELDS = (
     "max_buffers",
     "max_tenants",
     "max_segments",
-    "tile_rows",
-    "tile_cols",
+    "tile_rows_float32",
+    "tile_cols_float32",
+    "tile_rows_bfloat16",
+    "tile_cols_bfloat16",
+    "tile_narrow",
     "zero_rows",
     "smem_float32",
     "smem_bfloat16",

@@ -29,8 +29,8 @@ table) is NumPy and plain Python, as the JAX package's host side is;
 ``grid_accounting`` counts in the partition blocks ``(block_t, block_k,
 block_n)``, which decide ownership and which blocks are dead.  The kernels
 mask rows and depth exactly at the tenant's valid extents, in their own CTA
-tile (see the CUDA source): under the zero-padding contract the result is
-the same.
+tiles (``tile_shape``; see the CUDA source): under the zero-padding
+contract the result is the same.
 """
 
 from __future__ import annotations
@@ -270,16 +270,38 @@ def grid_accounting(
 # the launch table (host side) and the launch
 # ---------------------------------------------------------------------------
 
-# CTA geometry and table capacity of csrc/partitioned_matmul.cu (BM, BN,
-# ZERO_ROWS, MAX_TENANTS, MAX_SEGMENTS, the K slices); ``_layout`` holds them
-# against the built library
-TILE_ROWS = 64
-TILE_COLS = 64
+# CTA tile geometry and table capacity of csrc/partitioned_matmul.cu;
+# ``_layout`` holds them against the built library.  float32: 64 x 64 tiles.
+# bfloat16: a segment's tiles are 128 x 128, with NARROW rows where its
+# tenant has at most NARROW live rows and NARROW columns where the segment
+# has at most NARROW columns (``tile_shape``); a launch whose live tiles, cut
+# NARROW x NARROW, are no more than the card's streaming multiprocessors
+# takes those throughout: each then has an SM of its own, so no K loop gets
+# longer and a deep one is cut across SMs.  Indexed by ``bf16``: the widest
+# tile edge and the depth one K-loop step covers (Cfg<T>::BK)
+TILE_ROWS = (64, 128)
+TILE_COLS = (64, 128)
+NARROW = 64
+K_SLICES = (16, 64)
 ZERO_ROWS = 256
 MAX_TENANTS = 64
 MAX_SEGMENTS = 256
-# depth one K-loop step covers, float32 then bfloat16 (Cfg<T>::BK)
-K_SLICES = (16, 32)
+
+
+def tile_shape(
+    rows: int, cols: int, bf16: bool, narrow: bool = False
+) -> tuple[int, int]:
+    """The CTA tile ``(rows, columns)`` of a segment of ``cols`` columns
+    whose tenant has ``rows`` live rows, in a launch that takes narrow
+    tiles throughout or not (``narrow``)."""
+    if not bf16:
+        return TILE_ROWS[0], TILE_COLS[0]
+    if narrow:
+        return NARROW, NARROW
+    return (
+        TILE_ROWS[1] if rows > NARROW else NARROW,
+        TILE_COLS[1] if cols > NARROW else NARROW,
+    )
 
 
 class Tenant(NamedTuple):
@@ -312,16 +334,24 @@ class Segment(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class LaunchTable:
-    """One kernel launch.  Segment ``i`` owns CTAs ``first[i]`` up to the
-    next segment's first: its ``TILE_ROWS x TILE_COLS`` tiles, row tile
-    fastest (dense: ``grid_rows`` row tiles per column tile, a dead one
-    zeroed or skipped; compact: the live ones), then, compact only, its
-    ``ZERO_ROWS x TILE_COLS`` zero-fill tiles for the caller's rows below
-    the live ones.  Segments are in launch order, the deepest tenant's
-    first, so the longest K loops start first and the zero stores overlap
-    the arithmetic."""
+    """One kernel launch, float32 or bfloat16 (``bf16``).  Segment ``i``
+    owns tiles ``first[i]`` up to the next segment's first: its CTA tiles
+    (``tile_shape``), row tile fastest (dense: the row tiles of
+    ``grid_rows * NARROW`` rows per column tile, a dead one zeroed or
+    skipped; compact: the live ones), then, compact only, its ``ZERO_ROWS``
+    x tile-columns zero-fill tiles for the caller's rows below the live
+    ones.  Segments are in launch order, the deepest tenant's first, so the
+    longest K loops start first and the zero stores overlap the arithmetic.
+    A float32 CTA runs one tile.  The bfloat16 kernel's persistent CTAs
+    share the tiles in an order of their own: every segment's live tiles,
+    then every segment's zero-writing ones (the dense grid's tiles past the
+    caller's rows are never visited), so the live work is shared alike in
+    either mode.  ``narrow``: the launch's bfloat16 tiles are all
+    ``NARROW`` x ``NARROW``."""
 
     dense: bool
+    bf16: bool
+    narrow: bool
     tenants: tuple[Tenant, ...]
     segments: tuple[Segment, ...]
     first: tuple[int, ...]
@@ -343,49 +373,57 @@ class LaunchTable:
         off = lay["segments_offset"]
         for s, first in zip(self.segments, self.first):
             fields = (s.w_off, s.out_off, s.w, s.out, s.ldw, s.ldo, s.cols, s.tenant)
-            _SEGMENT.pack_into(blob, off, *fields, first, 0)
+            bm, bn = tile_shape(self.tenants[s.tenant].rows, s.cols, True, self.narrow)
+            shape = (bm == TILE_ROWS[1]) | (bn == TILE_COLS[1]) << 1
+            _SEGMENT.pack_into(blob, off, *fields, first, shape)
             off += _SEGMENT.size
         return blob
 
     @functools.cached_property
     def launched(self) -> list[int]:
-        """The table's launches, in float32 and in bfloat16, since the launch
-        counters last summed them (``tracing``)."""
-        return [0, 0]
+        """The table's launches since the launch counters last summed them
+        (``tracing``)."""
+        return [0]
 
     @functools.cached_property
-    def counts(self) -> tuple[TableCounts, TableCounts]:
-        """What one launch of the table does, in float32 and in bfloat16
-        (:class:`TableCounts`, indexed by ``bf16``), from the walk
-        ``run_cta`` makes: a tile at or past the tenant's live rows writes
-        zeros, unless it is past the caller's rows (dense), where it
-        exits."""
-        mac = fill = useful = 0
-        steps = [0] * len(K_SLICES)  # K-loop depth the MAC CTAs cover
+    def counts(self) -> TableCounts:
+        """What one launch of the table does (:class:`TableCounts`), from
+        the walk the kernel makes: a tile at or past the tenant's live rows
+        writes zeros, unless it is past the caller's rows (dense), where it
+        is skipped.  A live tile whose x or w row pitch is not a 16-byte
+        multiple counts as staged (``TableCounts``)."""
+        mac = fill = issued = useful = staged = 0
+        bk, item = K_SLICES[self.bf16], 2 if self.bf16 else 4
         for s in self.segments:
             t = self.tenants[s.tenant]
-            col_tiles = _ceil_div(s.cols, TILE_COLS)
-            live = _ceil_div(t.rows, TILE_ROWS)
+            bm, bn = tile_shape(t.rows, s.cols, self.bf16, self.narrow)
+            col_tiles = _ceil_div(s.cols, bn)
+            live = _ceil_div(t.rows, bm)
             if self.dense:
-                dead = _ceil_div(t.out_rows, TILE_ROWS) - live
+                dead = _ceil_div(t.out_rows, bm) - live
             else:
-                dead = max(0, _ceil_div(t.out_rows - live * TILE_ROWS, ZERO_ROWS))
+                dead = max(0, _ceil_div(t.out_rows - live * bm, ZERO_ROWS))
+            macs = col_tiles * live * bm * bn * _ceil_div(t.depth, bk) * bk
             mac += col_tiles * live
             fill += col_tiles * dead
+            issued += macs
             useful += t.rows * t.depth * s.cols
-            for j, bk in enumerate(K_SLICES):
-                steps[j] += col_tiles * live * _ceil_div(t.depth, bk) * bk
-        tile = TILE_ROWS * TILE_COLS
-        return tuple(
-            TableCounts(int(self.dense), self.grid, mac, fill, tile * k, useful)
-            for k in steps
+            if (t.ldx * item) % 16 or (s.ldw * item) % 16:
+                staged += macs
+        return TableCounts(
+            int(self.dense), self.grid, mac, fill, issued, useful, staged
         )
 
 
-def launch_table(tenants, segments, *, dense: bool) -> LaunchTable:
+def launch_table(
+    tenants, segments, *, dense: bool, bf16: bool, sms: int = 0
+) -> LaunchTable:
     """Schedule ``segments`` (each naming a tenant of ``tenants``) as one
-    launch of the dense or the compact kernel.  A tenant with no depth has
-    no live rows.  Raises ``ValueError`` past the table's capacity."""
+    launch of the dense or the compact kernel in float32 or bfloat16, on a
+    card of ``sms`` streaming multiprocessors (0: none is assumed, so a
+    bfloat16 launch never takes narrow tiles throughout).  A tenant with no
+    depth has no live rows.  Raises ``ValueError`` past the table's
+    capacity."""
     if len(tenants) > MAX_TENANTS:
         raise ValueError(
             f"{len(tenants)} tenants exceed the launch table's capacity "
@@ -401,29 +439,40 @@ def launch_table(tenants, segments, *, dense: bool) -> LaunchTable:
         for t in tenants
     )
     segments = tuple(sorted(segments, key=lambda s: -tenants[s.tenant].depth))
+    narrow_tiles = sum(
+        _ceil_div(s.cols, NARROW) * _ceil_div(tenants[s.tenant].rows, NARROW)
+        for s in segments
+    )
+    narrow = bf16 and sms > 0 and narrow_tiles <= sms
     grid_rows = 0
     if dense and segments:
         out_rows = [tenants[s.tenant].out_rows for s in segments]
-        grid_rows = _ceil_div(max(out_rows), TILE_ROWS)
+        grid_rows = _ceil_div(max(out_rows), NARROW)
     first, grid = [], 0
     for s in segments:
         t = tenants[s.tenant]
-        col_tiles = _ceil_div(s.cols, TILE_COLS)
-        live = _ceil_div(t.rows, TILE_ROWS)
+        bm, bn = tile_shape(t.rows, s.cols, bf16, narrow)
+        col_tiles = _ceil_div(s.cols, bn)
+        live = _ceil_div(t.rows, bm)
         first.append(grid)
-        grid += col_tiles * (grid_rows if dense else live)
+        grid += col_tiles * (_ceil_div(grid_rows * NARROW, bm) if dense else live)
         if not dense:
-            dead = t.out_rows - live * TILE_ROWS
+            dead = t.out_rows - live * bm
             grid += col_tiles * max(0, _ceil_div(dead, ZERO_ROWS))
-    return LaunchTable(dense, tenants, segments, tuple(first), grid_rows, grid)
+    return LaunchTable(
+        dense, bf16, narrow, tenants, segments, tuple(first), grid_rows, grid
+    )
 
 
 @functools.lru_cache(maxsize=256)
-def stacked_table(xs_shape, N, owner, valid_t, valid_k, block_n, dense):
+def stacked_table(
+    xs_shape, N, owner, valid_t, valid_k, block_n, dense, bf16=True, sms=0
+):
     """The table of ``partitioned_matmul``'s stacked operands (all arguments
-    ints or tuples of ints; cached per geometry): buffer 0 is ``xs`` (E, T,
-    K), 1 is ``w`` (K, N), 2 the (T, N) output.  Adjacent column blocks of
-    one owner form one segment."""
+    ints, bools or tuples of ints; cached per geometry, dtype and card's
+    streaming multiprocessors, as :func:`launch_table` takes them): buffer 0
+    is ``xs`` (E, T, K), 1 is ``w`` (K, N), 2 the (T, N) output.  Adjacent
+    column blocks of one owner form one segment."""
     tracing.count_table_build()
     E, T, K = xs_shape
     tenants = [
@@ -437,13 +486,14 @@ def stacked_table(xs_shape, N, owner, valid_t, valid_k, block_n, dense):
             cols = (j - start) * block_n
             segments.append(Segment(1, c0, N, 2, c0, N, cols, owner[start]))
             start = j
-    return launch_table(tenants, segments, dense=dense)
+    return launch_table(tenants, segments, dense=dense, bf16=bf16, sms=sms)
 
 
 @functools.lru_cache(maxsize=256)
-def tenant_table(shapes, ldx, ldw, dense):
-    """The table of the per-tenant form (all arguments tuples; cached per
-    geometry): for E tenants of ``(T_i, K_i, N_i)`` shapes, buffer ``i`` is
+def tenant_table(shapes, ldx, ldw, dense, bf16=True, sms=0):
+    """The table of the per-tenant form (cached per geometry, dtype and
+    card's streaming multiprocessors, as :func:`launch_table` takes them): for
+    E tenants of ``(T_i, K_i, N_i)`` shapes, buffer ``i`` is
     x_i (row stride ``ldx[i]``), ``E + i`` is w_i (row stride ``ldw[i]``)
     and ``2 E + i`` the contiguous ``(T_i, N_i)`` output.  Only the tenants'
     own rows are scheduled."""
@@ -455,7 +505,13 @@ def tenant_table(shapes, ldx, ldw, dense):
         for i, (t, _, n) in enumerate(shapes)
         if t > 0 and n > 0
     ]
-    return launch_table(tenants, segments, dense=dense)
+    return launch_table(tenants, segments, dense=dense, bf16=bf16, sms=sms)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _HEAD = struct.Struct("<2i")
@@ -479,8 +535,11 @@ def _layout() -> dict[str, int]:
         "max_buffers": 3 * MAX_TENANTS,
         "max_tenants": MAX_TENANTS,
         "max_segments": MAX_SEGMENTS,
-        "tile_rows": TILE_ROWS,
-        "tile_cols": TILE_COLS,
+        "tile_rows_float32": TILE_ROWS[0],
+        "tile_cols_float32": TILE_COLS[0],
+        "tile_rows_bfloat16": TILE_ROWS[1],
+        "tile_cols_bfloat16": TILE_COLS[1],
+        "tile_narrow": NARROW,
         "zero_rows": ZERO_ROWS,
         "k_slice_float32": K_SLICES[0],
         "k_slice_bfloat16": K_SLICES[1],
@@ -506,23 +565,12 @@ def _pack(table: LaunchTable, bufs) -> np.ndarray:
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-@functools.cache
-def _check_device(index: int) -> None:
-    """Once per device: the kernels' shared memory fits a block."""
-    props = torch.cuda.get_device_properties(index)
-    lay = _layout()
-    need = max(lay["smem_float32"], lay["smem_bfloat16"])
-    if need > props.shared_memory_per_block:
-        raise ValueError(
-            f"the kernels need {need} B of shared memory per block but "
-            f"{props.name} allows {props.shared_memory_per_block} B"
-        )
-
-
-def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device, clock) -> None:
+def _launch(table: LaunchTable, bufs, device: torch.device, clock) -> None:
     """Launch ``table`` on ``device``'s current stream (no launch when it
-    schedules no CTA) and count it; ``clock`` (armed calls only) marks the
-    end of the table phase and of the launch phase."""
+    schedules no tile) and count it; ``clock`` (armed calls only) marks the
+    end of the table phase and of the launch phase.  The library checks
+    the kernels' shared memory against the device's limit at its first
+    launch there, and an error it returns raises."""
     if table.grid == 0:
         if clock is not None:
             clock.finish()
@@ -530,12 +578,11 @@ def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device, clock) -
     blob = _pack(table, bufs)
     if clock is not None:
         clock.mark()
-    _check_device(device.index)
     if _raw_stream is not None:
         stream = _raw_stream(device.index)
     else:
         stream = torch.cuda.current_stream(device).cuda_stream
-    args = (int(table.dense), int(bf16), blob.ctypes.data, table.grid, stream)
+    args = (int(table.dense), int(table.bf16), blob.ctypes.data, table.grid, stream)
     lib = _build.load()
     if device.index == torch.cuda.current_device():
         err = lib.pm_launch(*args)
@@ -546,9 +593,9 @@ def _launch(table: LaunchTable, bufs, bf16: bool, device: torch.device, clock) -
         name = "dense" if table.dense else "compact"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launched = table.launched
-    launched[bf16] += 1
-    if launched[bf16] == 1:
-        tracing.watch(table.counts[bf16], launched, bf16)
+    launched[0] += 1
+    if launched[0] == 1:
+        tracing.watch(table.counts, launched, 0)
     if clock is not None:
         clock.mark()
 
@@ -589,8 +636,10 @@ def _tenant_matmul(xs, ws, shapes, dense, clock) -> list[torch.Tensor]:
     ]
     if clock is not None:
         clock.mark()
-    table = tenant_table(shapes, tuple(lds[:E]), tuple(lds[E:]), dense)
-    _launch(table, (*operands, *outs), dtype == torch.bfloat16, device, clock)
+    bf16 = dtype == torch.bfloat16
+    sms = sm_count(index)
+    table = tenant_table(shapes, tuple(lds[:E]), tuple(lds[E:]), dense, bf16, sms)
+    _launch(table, (*operands, *outs), device, clock)
     return outs
 
 
@@ -627,7 +676,7 @@ def partitioned_matmul(
 
     On CPU tensors the result is the plain version; on CUDA tensors
     ``grid_mode="dense"`` launches every output tile and gates the dead ones,
-    ``"compact"`` launches only the live tiles (and zero-fill CTAs for the
+    ``"compact"`` launches only the live tiles (and zero-fill tiles for the
     dead rows, in the same launch) — identical results.
     Operands must be bfloat16 or float32 (mixed pairs promote to float32).
     """
@@ -682,7 +731,9 @@ def partitioned_matmul(
         tuple(valid_k.tolist()),
         block_n,
         grid_mode == "dense",
+        xs.dtype == torch.bfloat16,
+        sm_count(xs.device.index),
     )
-    _launch(table, (xs, w, out), xs.dtype == torch.bfloat16, xs.device, clock)
+    _launch(table, (xs, w, out), xs.device, clock)
     return out
 

@@ -39,10 +39,16 @@ armed = False
 
 class TableCounts(NamedTuple):
     """One launch of a launch table, counted from the table: 1 where it is
-    the dense kernel's (0 the compact's), its CTAs, those that run a K loop,
-    those that only write zeros (the rest exit at once), the multiply-adds
-    the K loops issue (whole 64 x 64 tiles, the depth rounded up to the
-    dtype's K slice) and those the tenants' GEMMs need."""
+    the dense kernel's (0 the compact's), its tiles (a float32 CTA runs one;
+    the bfloat16 kernel's persistent CTAs share them), those that run a K
+    loop, those that only write zeros (the rest, past the caller's rows, are
+    skipped), the
+    multiply-adds the K loops issue (whole tiles of the shape that ran, the
+    depth rounded up to the dtype's K slice), those the tenants' GEMMs need,
+    and those of the issued ones whose x or w row pitch is not a 16-byte
+    multiple, which rules out 16-byte copies (the staged feed).  The table
+    knows pitches, not addresses: a tile staged for an operand's origin, or
+    for want of a tensor map, is not counted there."""
 
     dense: int
     ctas: int
@@ -50,6 +56,7 @@ class TableCounts(NamedTuple):
     fill_ctas: int
     macs_issued: int
     macs_useful: int
+    feed_staged_macs: int
 
 
 # a launch adds one to its table's own counter (``LaunchTable.launched``);
@@ -94,8 +101,9 @@ def set_tracing(on: bool) -> bool:
 
 def launch_stats() -> dict:
     """The store since the process started or the last reset: ``launches``
-    by kind; ``ctas``, ``mac_ctas``, ``fill_ctas`` (CTAs);
-    ``macs_issued``, ``macs_useful`` (multiply-adds); ``table_builds``
+    by kind; ``ctas``, ``mac_ctas``, ``fill_ctas`` (tiles);
+    ``macs_issued``, ``macs_useful``, ``feed_staged_macs``
+    (multiply-adds); ``table_builds``
     (launch tables built, not found in their cache); and per phase the
     armed calls (``phase_calls``) and their host nanoseconds
     (``phase_ns``)."""

@@ -7,9 +7,11 @@ first use) and skips elsewhere.  Run on the card with
 
 The file imports no JAX: the card's machine has none.  ``chip_smoke.py``
 covers the main path's shapes; these tests cover what it does not — partition
-blocks that are not multiples of the 64 × 64 CTA tile (masked column, row
-and depth bounds), operands at any alignment read in place, the wrapper's
-checks and the launch counters.
+blocks that are not multiples of the CTA tiles (64 × 64 in float32, 64 or
+128 a side in bfloat16: masked column, row and depth bounds), operands at
+any alignment read in place (bfloat16: by TMA where origin and row pitch
+are 16-byte aligned, else by the staged feed), the wrapper's checks and the
+launch counters.
 """
 
 import numpy as np
@@ -25,7 +27,11 @@ from repro_torch.kernels import (
     partitioned_matmul,
     partitioned_matmul_ref,
 )
+import importlib
+
 from repro_torch.kernels.partitioned_matmul import MAX_SEGMENTS, MAX_TENANTS
+
+pm = importlib.import_module("repro_torch.kernels.partitioned_matmul")
 
 pytestmark = pytest.mark.cuda
 
@@ -106,14 +112,14 @@ def test_counters_count_launches_only(cuda):
     before = launch_counts()
     xs = torch.ones((1, 128, 128), device=cuda)
     w = torch.ones((128, 128), device=cuda)
-    # nothing live: the launch holds only zero-fill CTAs (nothing else
+    # nothing live: the launch holds only zero-fill tiles (nothing else
     # zeroes the output), and it counts
     out = partitioned_matmul(xs, w, [0], [0], grid_mode="compact")
     assert torch.all(out == 0)
     partitioned_matmul(xs, w, [0], [128], grid_mode="compact")
     partitioned_matmul(xs, w, [0], [128], grid_mode="dense")
     partitioned_matmul(xs.cpu(), w.cpu(), [0], [128])  # plain version: no launch
-    fused_tenant_gemm([xs[0, :0]], [w], grid_mode="dense")  # no CTA: no launch
+    fused_tenant_gemm([xs[0, :0]], [w], grid_mode="dense")  # no tile: no launch
     after = launch_counts()
     assert after["compact"] == before["compact"] + 2
     assert after["dense"] == before["dense"] + 1
@@ -176,6 +182,74 @@ def test_mixed_dtypes_cast_only_the_bf16_side(cuda):
     w = torch.randint(-4, 5, (70, 30), device=cuda).float()
     (out,) = fused_tenant_gemm([x], [w])
     assert torch.equal(out, x.float() @ w)
+
+
+# every T, K and N beside each of the others' values once: 64- and 128-row
+# and -column tiles, depths under a K slice and off one, rows of 2 and 4
+# bytes and of 16-byte multiples
+FEEDS = [
+    (t, k, (1, 2, 100, 513)[(i + j) % 4])
+    for i, t in enumerate((1, 64, 65, 129))
+    for j, k in enumerate((1, 63, 147, 1025))
+]
+
+
+def _views(shapes, pitch, offset, device, seed):
+    """Integer-valued bfloat16 operands as views into larger buffers: rows
+    ``pitch(cols)`` values apart, ``offset`` values from a buffer's start."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(rows, cols):
+        flat = torch.randint(-4, 5, (offset + rows * pitch(cols),), generator=gen,
+                             device=device).to(torch.bfloat16)
+        return flat[offset:].view(rows, pitch(cols))[:, :cols]
+
+    return [draw(t, k) for t, k, _ in shapes], [draw(k, n) for _, k, n in shapes]
+
+
+@pytest.fixture(params=[0, 10**9], ids=["per-segment", "narrow-launch"])
+def tile_rule(request, monkeypatch):
+    """The launch's tile rule, through the card's multiprocessors as the
+    launch sees them: none (each segment's own tile shape), or more than
+    the launch's 64 x 64 tiles (those throughout); the table caches are
+    cleared around it."""
+    monkeypatch.setattr(pm, "sm_count", lambda index: request.param)
+    pm.tenant_table.cache_clear()
+    yield request.param
+    pm.tenant_table.cache_clear()
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+@pytest.mark.parametrize(
+    "pitch, offset",
+    [
+        (lambda c: c, 0),  # contiguous: TMA where the rows are 16-byte multiples
+        (lambda c: -(-c // 8) * 8 + 8, 8),  # aligned views: TMA, pitch != cols
+        (lambda c: c + 1, 1),  # 2-byte boundaries: the staged feed
+        (lambda c: -(-c // 2) * 2 + 2, 2),  # 4-byte boundaries: the staged feed
+    ],
+    ids=["contiguous", "aligned-views", "2-byte", "4-byte"],
+)
+def test_bf16_feeds_bit_exact_at_every_tile_shape(
+    cuda, pitch, offset, grid_mode, tile_rule
+):
+    xs, ws = _views(FEEDS, pitch, offset, cuda, seed=5)
+    outs = fused_tenant_gemm(xs, ws, grid_mode=grid_mode)
+    for x, w, out in zip(xs, ws, outs):
+        assert out.is_contiguous() and torch.equal(out, x.float() @ w.float())
+
+
+def test_bf16_tenants_past_the_tensor_maps_are_staged(cuda):
+    # 40 aligned tenants want 80 tensor maps, more than one launch encodes:
+    # the rest take the staged feed, in the same launch
+    shapes = [(64 + i, 64 * (1 + i % 3), 64 + 8 * i) for i in range(40)]
+    xs, ws = _views(shapes, lambda c: c, 0, cuda, seed=6)
+    before = launch_counts()
+    outs = fused_tenant_gemm(xs, ws, grid_mode="compact")
+    after = launch_counts()
+    assert after["compact"] == before["compact"] + 1
+    for x, w, out in zip(xs, ws, outs):
+        assert torch.equal(out, x.float() @ w.float())
 
 
 def test_wrapper_raises_past_the_table_capacity(cuda):

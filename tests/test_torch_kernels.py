@@ -42,9 +42,9 @@ from repro_torch.kernels.ops import _geometry_accounting
 from repro_torch.kernels.partitioned_matmul import (
     MAX_SEGMENTS,
     MAX_TENANTS,
-    TILE_COLS,
-    TILE_ROWS,
+    NARROW,
     ZERO_ROWS,
+    tile_shape,
 )
 from repro_torch.sim import workloads
 
@@ -205,18 +205,25 @@ class TestHostTables:
                 )
                 assert mine.as_dict() == theirs.as_dict()
 
+    # bfloat16-narrow: on a card with more multiprocessors than the launch
+    # has tiles, so it takes 64 x 64 tiles throughout
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bfloat16-narrow"])
     @pytest.mark.parametrize("grid_mode", ["dense", "compact"])
     @pytest.mark.parametrize("seed", range(4))
     @pytest.mark.parametrize("blocks", [(128, 128, 128), (32, 64, 96), (192, 32, 64)])
-    def test_launch_table_covers_the_output_once(self, seed, blocks, grid_mode):
+    def test_launch_table_covers_the_output_once(self, seed, blocks, grid_mode, dtype):
         bt, bk, bn = blocks
+        bf16 = dtype != "float32"
+        sms = 10**6 if dtype == "bfloat16-narrow" else 0
         owner, vt, vk, T, K = self._layout(seed)
         T, K = T // 128 * 3 * bt, K // 128 * 3 * bk
         vt, vk = vt * 3 * bt // 128, vk * 3 * bk // 128
         N = owner.size * bn
         table = stacked_table(
-            (vt.size, T, K), N, *_ints(owner, vt, vk), bn, grid_mode == "dense"
+            (vt.size, T, K), N, *_ints(owner, vt, vk), bn, grid_mode == "dense", bf16,
+            sms,
         )
+        assert table.narrow == (sms > 0)
         writes = np.zeros((T, N), np.int64)
         by_live = np.zeros((T, N), bool)
         n_live = 0
@@ -233,12 +240,18 @@ class TestHostTables:
         e = owner[np.arange(N) // bn]
         live = (np.arange(T)[:, None] < vt[e][None, :]) & (vk[e] > 0)[None, :]
         assert not (live & ~by_live).any()  # every live value is computed
-        col_tiles = [-(-s.cols // TILE_COLS) for s in table.segments]
+        shapes = [_tile(table, s) for s in table.segments]
+        col_tiles = [-(-s.cols // bn) for s, (_, bn) in zip(table.segments, shapes)]
         rows = [table.tenants[s.tenant].rows for s in table.segments]
-        want = sum(c * -(-r // TILE_ROWS) for c, r in zip(col_tiles, rows))
-        assert n_live == want  # no CTA computes a tile without live rows
+        want = sum(
+            c * -(-r // bm) for c, r, (bm, _) in zip(col_tiles, rows, shapes)
+        )
+        assert n_live == want  # no tile computes without live rows
         if grid_mode == "dense":
-            assert table.grid == sum(col_tiles) * -(-T // TILE_ROWS)
+            rows_of_grid = -(-T // NARROW) * NARROW
+            assert table.grid == sum(
+                c * -(-rows_of_grid // bm) for c, (bm, _) in zip(col_tiles, shapes)
+            )
 
 
 def _ints(*arrays):
@@ -246,42 +259,94 @@ def _ints(*arrays):
     return [tuple(np.asarray(a).tolist()) for a in arrays]
 
 
+def _tile(table, s):
+    """The tile shape of segment ``s`` of ``table``."""
+    rows = table.tenants[s.tenant].rows
+    return tile_shape(rows, s.cols, table.bf16, table.narrow)
+
+
+def _search(starts, b):
+    """The last index whose start is at or before ``b`` (the kernels' binary
+    search over range starts)."""
+    lo, hi = 0, len(starts) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if starts[mid] <= b:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def _walk_bf16(table):
+    """``_walk`` for a bfloat16 table, as ``wide_tile`` walks it: every
+    segment's live tiles (row tile fastest), then every segment's dead
+    ones; the dense grid's tiles past the caller's rows are not walked."""
+    shapes, live_first, dead_first, live, dead = [], [], [], 0, 0
+    for s in table.segments:
+        t = table.tenants[s.tenant]
+        bm, bn = _tile(table, s)
+        col_tiles = -(-s.cols // bn)
+        live_rows = -(-t.rows // bm)
+        tile_rows = bm if table.dense else ZERO_ROWS
+        dead_rows = max(0, -(-(t.out_rows - live_rows * bm) // tile_rows))
+        shapes.append((bm, bn, live_rows, tile_rows, dead_rows))
+        live_first.append(live)
+        dead_first.append(dead)
+        live += live_rows * col_tiles
+        dead += dead_rows * col_tiles
+    for b in range(live + dead):
+        starts = live_first if b < live else [live + d for d in dead_first]
+        i = _search(starts, b)
+        s = table.segments[i]
+        t = table.tenants[s.tenant]
+        bm, bn, live_rows, tile_rows, dead_rows = shapes[i]
+        local = b - starts[i]
+        if b < live:
+            row0, col0, tile_rows = local % live_rows * bm, local // live_rows * bn, bm
+        else:
+            row0 = live_rows * bm + local % dead_rows * tile_rows
+            col0 = local // dead_rows * bn
+        r_end = min(tile_rows, t.out_rows - row0)
+        c_end = min(bn, s.cols - col0)
+        yield ("live" if b < live else "zero"), s, t, row0, col0, r_end, c_end
+
+
 def _walk(table):
-    """Every CTA of ``table`` as ``(kind, segment, tenant, row0, col0, r_end,
-    c_end)``, found exactly as ``run_cta`` in the CUDA source finds it: the
-    segment by binary search over the range starts, the tile from the
-    offset in the segment's range (its main tiles, row tile fastest, then
-    its zero-fill tiles).  ``kind`` is "live" (computes), "zero" (writes
-    zeros) or "exit" (no tile of the output)."""
+    """Every tile of ``table`` as ``(kind, segment, tenant, row0, col0,
+    r_end, c_end)``, found exactly as the CUDA source finds it: float32 as
+    ``run_cta`` does, the segment by binary search over the range starts,
+    the tile from the offset in the segment's range (its main tiles, row
+    tile fastest, then its zero-fill tiles); bfloat16 by ``_walk_bf16``.
+    ``kind`` is "live" (computes), "zero" (writes zeros) or "exit" (no tile
+    of the output)."""
+    if table.bf16:
+        yield from _walk_bf16(table)
+        return
     for b in range(table.grid):
-        lo, hi = 0, len(table.segments) - 1
-        while lo < hi:
-            mid = (lo + hi + 1) // 2
-            if table.first[mid] <= b:
-                lo = mid
-            else:
-                hi = mid - 1
+        lo = _search(table.first, b)
         s = table.segments[lo]
         t = table.tenants[s.tenant]
-        live_tiles = -(-t.rows // TILE_ROWS)
-        row_tiles = table.grid_rows if table.dense else live_tiles
-        col_tiles = -(-s.cols // TILE_COLS)
+        bm, bn = _tile(table, s)
+        live_tiles = -(-t.rows // bm)
+        row_tiles = -(-table.grid_rows * NARROW // bm) if table.dense else live_tiles
+        col_tiles = -(-s.cols // bn)
         local = b - table.first[lo]
         if local < row_tiles * col_tiles:
-            row0 = local % row_tiles * TILE_ROWS
-            col0 = local // row_tiles * TILE_COLS
-            tile_rows = TILE_ROWS
+            row0 = local % row_tiles * bm
+            col0 = local // row_tiles * bn
+            tile_rows = bm
         else:
             local -= row_tiles * col_tiles
-            fill_tiles = -(-(t.out_rows - live_tiles * TILE_ROWS) // ZERO_ROWS)
-            row0 = live_tiles * TILE_ROWS + local % fill_tiles * ZERO_ROWS
-            col0 = local // fill_tiles * TILE_COLS
+            fill_tiles = -(-(t.out_rows - live_tiles * bm) // ZERO_ROWS)
+            row0 = live_tiles * bm + local % fill_tiles * ZERO_ROWS
+            col0 = local // fill_tiles * bn
             tile_rows = ZERO_ROWS
         if row0 >= t.out_rows:
             yield "exit", s, t, row0, col0, 0, 0
             continue
         r_end = min(tile_rows, t.out_rows - row0)
-        c_end = min(TILE_COLS, s.cols - col0)
+        c_end = min(bn, s.cols - col0)
         yield ("zero" if row0 >= t.rows else "live"), s, t, row0, col0, r_end, c_end
 
 
@@ -332,7 +397,12 @@ class TestLaunchTable:
         xs += rng.standard_normal(xs.shape, dtype=np.float32) * (xs != 0)
         kw = dict(block_t=bt, block_k=bk, block_n=bn)
         table = stacked_table(
-            (E, T, K), N, *_ints(owner, vt, vk), bn, grid_mode == "dense"
+            (E, T, K),
+            N,
+            *_ints(owner, vt, vk),
+            bn,
+            grid_mode == "dense",
+            dtype == "bfloat16",
         )
         bufs = [_flat(xs, dtype), _flat(w, dtype), np.full(T * N, np.nan, np.float32)]
         writes = _interpret(table, bufs)
@@ -357,6 +427,7 @@ class TestLaunchTable:
             tuple(k for _, k, _ in self.SHAPES),
             tuple(n for _, _, n in self.SHAPES),
             grid_mode == "dense",
+            dtype == "bfloat16",
         )
         outs = [np.full(t * n, np.nan, np.float32) for t, _, n in self.SHAPES]
         bufs = [_flat(x, dtype) for x in xs] + [_flat(w, dtype) for w in ws] + outs
@@ -378,7 +449,7 @@ class TestLaunchTable:
 
     def test_zero_depth_tenant_gets_zeros_and_no_live_tile(self):
         shapes = ((100, 0, 70), (64, 8, 64))
-        table = tenant_table(shapes, (0, 8), (70, 64), False)
+        table = tenant_table(shapes, (0, 8), (70, 64), False, True)
         kinds = [(kind, s.tenant) for kind, s, *_ in _walk(table)]
         assert ("live", 0) not in kinds and ("zero", 0) in kinds
         x1 = np.ones(64 * 8, np.float32)
@@ -392,7 +463,7 @@ class TestLaunchTable:
 
     def test_segments_run_deepest_tenant_first(self):
         shapes = ((64, 10, 64), (64, 500, 64), (64, 90, 64))
-        table = tenant_table(shapes, (10, 500, 90), (64,) * 3, False)
+        table = tenant_table(shapes, (10, 500, 90), (64,) * 3, False, True)
         assert [s.tenant for s in table.segments] == [1, 2, 0]
         assert table.first == (0, 1, 2) and table.grid == 3
 
@@ -401,11 +472,13 @@ class TestLaunchTable:
         n = (MAX_TENANTS if what == "tenants" else MAX_SEGMENTS) + 1
         if what == "tenants":
             with pytest.raises(ValueError, match="MAX_TENANTS"):
-                tenant_table(((1, 1, 1),) * n, (1,) * n, (1,) * n, False)
+                tenant_table(((1, 1, 1),) * n, (1,) * n, (1,) * n, False, True)
         else:
             owner = tuple(i % 2 for i in range(n))  # one segment a block
             with pytest.raises(ValueError, match="MAX_SEGMENTS"):
-                stacked_table((2, 64, 64), 64 * n, owner, (64, 64), (64, 64), 64, True)
+                stacked_table(
+                    (2, 64, 64), 64 * n, owner, (64, 64), (64, 64), 64, True, True
+                )
 
 
 def _bench_mixes():
