@@ -33,7 +33,15 @@ check:
    counters (``launch_stats``) are checked: one launch, as many tiles as its
    launch table's grid; the host caches (``snapshot_host_caches``) are
    folded into one ``repro_torch.obs.MetricsRegistry`` outside the timed
-   loops and printed with the counters.
+   loops and printed with the counters.  Last, the kernels as the LFM2
+   prefill cell's main path calls them, at its widths
+   (``lfm2_layer_check``): one routed MoE layer's gate‖up and down calls
+   over 64 expert tenants (rows routed on the card, four experts empty,
+   most tenants past the launch's 24 tensor maps and so on the staged
+   feed) and the output head's (65,536 x 2,048) @ (2,048 x 4) call, dense
+   and compact, each one launch of its grid and held tenant by tenant
+   against a float32 matmul of the same bf16 operands (< 1e-4) and, on
+   integer-valued operands, bit for bit.
 3. Serving: a ``MultiTenantEngine`` over the card as one column serves two
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
@@ -247,6 +255,14 @@ DTYPES = ("float32", "bfloat16")
 MODES = ("dense", "compact")
 ENQUEUE_CALLS = 50  # calls timed on the host clock without a synchronise
 KERNEL_FILE = "src/repro_torch/kernels/csrc/partitioned_matmul.cu"
+# one routed MoE layer of cardbench's lfm2-24b-prefill-16k cell: tokens a
+# round, hidden size, expert width, experts, experts a token, the drawn
+# expert bias's spread; the output head's rows (the vocabulary) and columns
+# (the prompts); experts left with no rows; and the launch's tensor maps
+LFM2_LAYER = (16_384, 2048, 1536, 64, 4, 0.02)
+LFM2_HEAD = (65_536, 4)
+LFM2_EMPTY = (5, 17, 40, 63)
+TENSOR_MAPS = 24  # MAX_MAPS, partitioned_matmul.cu
 PAPER_WORKLOADS = ("heavy", "light")
 PAPER_POLICIES = [
     "best_fit",
@@ -664,6 +680,137 @@ def kernel_registry(K, mixes: dict, calls: dict) -> None:
     log(render_summary(registry, title="kernel path, host caches"))
 
 
+def lfm2_counts(torch, device, seed: int = SEED) -> list[int]:
+    """Rows per expert of one routed MoE layer at ``LFM2_LAYER``'s size, as
+    ``routed_experts`` routes it: RMS-normed bf16 tokens through a
+    1/sqrt(d) router, f32 sigmoid scores plus a drawn bias, the top k; then
+    each expert of ``LFM2_EMPTY`` emptied onto the next, so the call has
+    tenants with no rows."""
+    T, d, _, E, k, bias_std = LFM2_LAYER
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((T, d), generator=gen, device=device).to(torch.bfloat16)
+    router = torch.randn((d, E), generator=gen, device=device) * d**-0.5
+    bias = torch.randn((E,), generator=gen, device=device) * bias_std
+    scores = torch.sigmoid(x.float() @ router.to(torch.bfloat16).float())
+    chosen = torch.topk(scores + bias, k, dim=-1).indices.reshape(-1)
+    counts = torch.bincount(chosen, minlength=E).tolist()
+    for e in LFM2_EMPTY:
+        counts[(e + 1) % E] += counts[e]
+        counts[e] = 0
+    return counts
+
+
+def lfm2_calls(counts: list[int]) -> dict:
+    """The layer's two expert calls and the output head as ``(T, K, N)``
+    tenant shapes, every expert a tenant (none left out for having no
+    rows), as ``routed_experts`` and ``lfm2_moe`` make them."""
+    _, d, f, _, _, _ = LFM2_LAYER
+    V, B = LFM2_HEAD
+    return {
+        "gate_up": [(t, d, 2 * f) for t in counts],
+        "down": [(t, f, d) for t in counts],
+        "head": [(V, d, B)],
+    }
+
+
+def mapped_tenants(table) -> int:
+    """Live tenants whose x and w both get a tensor map where every operand
+    allows one: the launcher encodes them segment by segment in launch
+    order, x then w, until ``TENSOR_MAPS`` are used (``encode_maps``)."""
+    seen, both, n = set(), 0, 0
+    for sg in table.segments:
+        if n >= TENSOR_MAPS:
+            break
+        if table.tenants[sg.tenant].rows <= 0:
+            continue
+        x = sg.tenant not in seen
+        seen.add(sg.tenant)
+        n += x
+        if n < TENSOR_MAPS:
+            n += 1
+            both += x
+    return both
+
+
+def lfm2_layer_check(torch, K) -> dict:
+    """The kernels as the LFM2 cell's main path calls them, at its widths:
+    one routed MoE layer's gate‖up and down calls over 64 expert tenants
+    (rows routed on the card, some experts empty, most tenants past the
+    launch's tensor maps and on the staged feed), each x a view of one
+    sorted row buffer and each w a view of an expert stack, and the output
+    head's (65,536 x 2,048) @ (2,048 x 4) call; each in dense and compact
+    mode.  Every call is one launch of its table's grid; every tenant's
+    output is held against a float32 matmul of the same bf16 operands
+    (max relative error < MAX_REL_ERR) and, on integer-valued operands,
+    bit for bit.  Returns the calls' shapes and CUDA-event ms a call."""
+    counts = lfm2_counts(torch, "cuda")
+    calls = lfm2_calls(counts)
+    sms = K.sm_count(0)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+
+    def draw(shape, integer):
+        if integer:
+            v = torch.randint(-4, 5, shape, generator=gen, device="cuda")
+        else:
+            v = torch.randn(shape, generator=gen, device="cuda")
+        return v.to(torch.bfloat16)
+
+    def operands(name, integer):
+        shapes = calls[name]
+        if name == "head":
+            (t, k, n), = shapes
+            return [draw((t, k), integer)], [draw((n, k), integer).t().contiguous()]
+        _, k, n = shapes[0]
+        rows = draw((sum(t for t, _, _ in shapes), k), integer)
+        stack = draw((len(shapes), k, n), integer)
+        return list(rows.split([t for t, _, _ in shapes])), list(stack.unbind(0))
+
+    times, out = {}, {"counts": counts, "empty": counts.count(0)}
+    for name, shapes in calls.items():
+        for integer in (False, True):
+            xs, ws = operands(name, integer)
+            for mode in MODES:
+                before = K.launch_stats()
+                got = K.fused_tenant_gemm(xs, ws, grid_mode=mode)
+                after = K.launch_stats()
+                lds = tuple(x.stride(0) for x in xs), tuple(w.stride(0) for w in ws)
+                table = K.tenant_table(tuple(shapes), *lds, mode == "dense", True, sms)
+                launches = sum(after["launches"].values()) - sum(
+                    before["launches"].values()
+                )
+                ctas = after["ctas"] - before["ctas"]
+                what = f"lfm2 {name} {mode}{' integer' if integer else ''}"
+                check(
+                    launches == 1 and ctas == table.grid,
+                    f"{what}: {launches} launches, {ctas} tiles, grid {table.grid}",
+                )
+                for i, (x, w, o) in enumerate(zip(xs, ws, got)):
+                    ref = x.float() @ w.float()
+                    check(o.shape == ref.shape, f"{what} tenant {i}: {tuple(o.shape)}")
+                    if integer:
+                        check(torch.equal(o, ref), f"{what} tenant {i}: not exact")
+                    elif ref.numel():
+                        err = (o - ref).abs().max() / (ref.abs().max() + 1e-9)
+                        check(err.item() < MAX_REL_ERR, f"{what} tenant {i}: {err}")
+                if name != "head":
+                    out[f"{name}_{mode}_mapped"] = mapped_tenants(table)
+                del got
+            if not integer:
+                times |= time_in_turns(
+                    torch,
+                    {
+                        f"{name}_{m}": (
+                            lambda m=m: K.fused_tenant_gemm(xs, ws, grid_mode=m)
+                        )
+                        for m in MODES
+                    },
+                )
+            del xs, ws
+    out["ms"] = times
+    log(f"lfm2 layer: {json.dumps(out)}")
+    return out
+
+
 def kernel_phase(torch, K, details: dict) -> list[dict]:
     from repro_torch.sim import workloads
 
@@ -826,6 +973,7 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
             log(f"{mix} {dt} blocks {(bt, bk, bn)}: {ms}")
         log(f"{mix} {dt}: checked")
 
+    lfm2 = lfm2_layer_check(torch, K)
     record = []
     for mode in MODES:
         head = rounds[mode][0]  # heavy_l0/float32
@@ -846,6 +994,9 @@ def kernel_phase(torch, K, details: dict) -> list[dict]:
                 "headline": head["round"],
                 "rounds": rounds[mode],
                 "fused": fused[mode],
+                "lfm2_layer": {
+                    k: v for k, v in lfm2["ms"].items() if k.endswith(mode)
+                },
                 "build": {dt: details.get(f"{mode}/{dt}", {}) for dt in DTYPES},
             }
         )

@@ -24,6 +24,7 @@ nothing and records no phase.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -151,6 +152,15 @@ def count_table_build() -> None:
 
 # whether a profiler records now (0.1 us a call; read only when armed)
 _profiling = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` span named ``name`` where tracing is armed and
+    a profiler records; otherwise one shared context that does nothing."""
+    if armed and _profiling():
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 class Clock:
