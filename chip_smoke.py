@@ -41,7 +41,10 @@ check:
    feed) and the output head's (65,536 x 2,048) @ (2,048 x 4) call, dense
    and compact, each one launch of its grid and held tenant by tenant
    against a float32 matmul of the same bf16 operands (< 1e-4) and, on
-   integer-valued operands, bit for bit.
+   integer-valued operands, bit for bit; then the layer's two expert calls
+   with the epilogue (SiLU·up and the gate-weighted rows in bfloat16, each
+   into one buffer) and its combine, timed beside the plain composition
+   (f32 outputs, concatenated, cast, weighted and summed by PyTorch).
 3. Serving: a ``MultiTenantEngine`` over the card as one column serves two
    full-width, full-depth llama3.2-3b tenants (random bf16 weights from a
    seeded generator on the card), 3 requests each, to completion; the
@@ -806,9 +809,115 @@ def lfm2_layer_check(torch, K) -> dict:
                     },
                 )
             del xs, ws
+    times |= lfm2_epilogue_check(torch, K, counts)
     out["ms"] = times
     log(f"lfm2 layer: {json.dumps(out)}")
     return out
+
+
+def lfm2_epilogue_check(torch, K, counts: list[int]) -> dict:
+    """The routed layer's expert calls and glue at ``LFM2_LAYER``'s size,
+    as ``routed_experts`` runs them with the epilogue (``*_epilogue``: one
+    compact launch a call, its outputs the rows of one bfloat16 buffer,
+    then the combine's gather and f32 sum) and as it composed them before
+    (``*_plain``: f32 outputs, ``torch.cat``, casts, SiLU·up, the gates in
+    f32, the scatter back to token order).  The epilogue's outputs are held
+    against the plain composition's, which rounds gate and up before SiLU,
+    within two bfloat16 roundings (2**-6 of the largest); CUDA-event ms a
+    call, by part."""
+    import torch.nn.functional as F
+
+    T, d, f, E, k, _ = LFM2_LAYER
+    S = T * k
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rows = torch.randn((S, d), generator=gen, device="cuda").to(torch.bfloat16)
+    gate_up = (torch.randn((E, d, 2 * f), generator=gen, device="cuda")
+               * d**-0.5).to(torch.bfloat16)
+    down = (torch.randn((E, f, d), generator=gen, device="cuda")
+            * f**-0.5).to(torch.bfloat16)
+    gates = torch.rand((T, k), generator=gen, device="cuda")
+    order = torch.randperm(S, generator=gen, device="cuda")
+    slot_gates = gates.reshape(-1)[order]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(S, device="cuda")
+    xs, gws = list(rows.split(counts)), list(gate_up.unbind(0))
+    dws = list(down.unbind(0))
+    act = torch.empty((S, f), dtype=torch.bfloat16, device="cuda")
+    y = torch.empty((S, d), dtype=torch.bfloat16, device="cuda")
+
+    def gate_up_epilogue():
+        K.fused_tenant_gemm(xs, gws, grid_mode="compact", epilogue="swiglu", out=act)
+
+    def down_epilogue():
+        K.fused_tenant_gemm(list(act.split(counts)), dws, grid_mode="compact",
+                            row_scale=slot_gates, out=y)
+
+    def glue_epilogue():
+        return y.index_select(0, inv).view(T, k, d).sum(1, dtype=torch.float32).to(
+            torch.bfloat16)
+
+    def layer_epilogue():
+        gate_up_epilogue()
+        down_epilogue()
+        return glue_epilogue()
+
+    def gate_up_plain():
+        return K.fused_tenant_gemm(xs, gws, grid_mode="compact")
+
+    def down_plain(a):
+        return K.fused_tenant_gemm(list(a.split(counts)), dws, grid_mode="compact")
+
+    def glue_plain(gu, dn):
+        a = torch.cat(gu)
+        a = F.silu(a[:, :f].to(torch.bfloat16)) * a[:, f:].to(torch.bfloat16)
+        yp = torch.cat(dn).to(torch.bfloat16)
+        by_token = torch.empty_like(yp)
+        by_token[order] = yp
+        return a, (by_token.view(T, k, d).float() * gates[..., None]).sum(1).to(
+            torch.bfloat16)
+
+    def layer_plain():
+        gu = gate_up_plain()
+        a = torch.cat(gu)
+        a = F.silu(a[:, :f].to(torch.bfloat16)) * a[:, f:].to(torch.bfloat16)
+        dn = down_plain(a)
+        yp = torch.cat(dn).to(torch.bfloat16)
+        by_token = torch.empty_like(yp)
+        by_token[order] = yp
+        return (by_token.view(T, k, d).float() * gates[..., None]).sum(1).to(
+            torch.bfloat16)
+
+    for name, call in (("gate_up", gate_up_epilogue), ("down", down_epilogue)):
+        before = K.launch_stats()["launches"]
+        call()
+        after = K.launch_stats()["launches"]
+        check(after["compact"] == before["compact"] + 1
+              and after["dense"] == before["dense"],
+              f"lfm2 {name} epilogue: not one compact launch")
+    got, want = layer_epilogue(), layer_plain()
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    check(err < 2**-6, f"lfm2 layer epilogue against the plain composition: {err}")
+    gu = gate_up_plain()
+    a_plain, _ = glue_plain(gu, down_plain(act))
+    gap = ((act.float() - a_plain.float()).abs().max()
+           / a_plain.float().abs().max()).item()
+    check(gap < 2**-6, f"lfm2 SiLU·up epilogue against the plain composition: {gap}")
+    dn = down_plain(act)
+    times = time_in_turns(
+        torch,
+        {
+            "gate_up_epilogue": gate_up_epilogue,
+            "down_epilogue": down_epilogue,
+            "glue_epilogue": glue_epilogue,
+            "layer_epilogue": layer_epilogue,
+            "gate_up_plain": gate_up_plain,
+            "down_plain": lambda: down_plain(act),
+            "glue_plain": lambda: glue_plain(gu, dn),
+            "layer_plain": layer_plain,
+        },
+    )
+    log(f"lfm2 epilogue: rel err {err:.3e}, SiLU·up {gap:.3e}, ms {json.dumps(times)}")
+    return times
 
 
 def kernel_phase(torch, K, details: dict) -> list[dict]:

@@ -88,6 +88,8 @@ def load() -> ctypes.CDLL:
     lib.pm_layout.restype = i32
     lib.pm_launch.argtypes = [i32, i32, ptr, i32, ptr]
     lib.pm_launch.restype = i32
+    lib.pm_launch_epilogue.argtypes = [ptr, i32, ptr, ptr]
+    lib.pm_launch_epilogue.restype = i32
     return lib
 
 

@@ -59,6 +59,17 @@
 // caller's output: a live tile writes its sums (zeros in its rows past the
 // live rows); the zeros of dead rows are written with 16-byte stores where
 // the output allows them.  One launch a call, whatever the alignments.
+//
+// The epilogue (bfloat16 compact launches only, a kernel of its own): the
+// output is bfloat16, each value the f32 result rounded once, and the
+// consumers finish a tile in registers before they store it:
+//   * a gated segment (Segment::shape bit 2) has w of 2 cols columns, gate
+//     then up; output column c is silu(x . w[:, c]) * (x . w[:, cols + c]).
+//     Its tiles are 64 output columns wide and multiply a 128-column B made
+//     of w's blocks at c0 and cols + c0, so gate column c and up column c
+//     land in one thread (m64nNk16: columns 8 i + ... and 8 (i + 8) + ...);
+//   * a row scale (a float per row of the output buffer, null for none)
+//     multiplies each output row before the rounding.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,7 +111,7 @@ struct Segment {
   int tenant;  // index into Params::tenants
   int first;   // first tile of the segment's range
   int shape;   // bfloat16: its tiles' edges, bit 0 rows and bit 1 columns
-               // (set: 128, clear: 64)
+               // (set: 128, clear: 64); bit 2: gated (the epilogue only)
 };
 
 struct Params {
@@ -706,27 +717,36 @@ struct Operand {
   const __nv_bfloat16* g;  // the slice's origin
   int ld, rows, lim, cols;
   unsigned s, spill;
+  // w of a gated tile: its second block of 64 columns starts `step` columns
+  // past the first (the up half), and each block has `cols` live columns
+  int step = 64;
+  bool glu = false;
 
   __device__ __forceinline__ const __nv_bfloat16* row(int q) const {
-    return W ? g + (size_t)(q % 64) * ld + 64 * (q / 64) : g + (size_t)q * ld;
+    return W ? g + (size_t)(q % 64) * ld + (glu ? step : 64) * (q / 64)
+             : g + (size_t)q * ld;
   }
   __device__ __forceinline__ unsigned at(int q) const {
     return W ? s + (q / 64) * W_BLOCK + 128 * (q % 64) : s + 128 * q;
   }
   __device__ __forceinline__ int live(int q) const {  // live values of row q
-    if (W) return q % 64 < lim ? max(0, min(cols - 64 * (q / 64), 64)) : 0;
+    if (W)
+      return q % 64 < lim ? max(0, min(glu ? cols : cols - 64 * (q / 64), 64))
+                          : 0;
     return q < lim ? min(cols, 64) : 0;
   }
 };
 
 // A live tile's operands as its K loop reads them: x from row0 of the tile
 // (`rows` of its `bm` rows live), w from col0 (`cols` of its `bn` columns
-// live), each staged (`sx`, `sw`) or loaded by TMA.
+// live), each staged (`sx`, `sw`) or loaded by TMA.  A gated tile (`glu`)
+// reads bn = 128 columns of w, 64 from col0 and 64 from col0 + `step`,
+// `cols` of each live.
 struct Feed {
   const __nv_bfloat16* x;
   const __nv_bfloat16* w;
-  int ldx, ldw, bm, bn, rows, cols, depth;
-  bool sx, sw;
+  int ldx, ldw, bm, bn, rows, cols, depth, step;
+  bool sx, sw, glu;
 };
 
 // The x (w) operand of the tile's K slice at depth k0 in the stage at st.
@@ -739,7 +759,7 @@ __device__ __forceinline__ Operand<false> x_slice(const Feed& f, int k0,
 __device__ __forceinline__ Operand<true> w_slice(const Feed& f, int k0,
                                                  unsigned st) {
   return {f.w + (size_t)k0 * f.ldw, f.ldw, f.bn, f.depth - k0, f.cols,
-          st + X_BYTES, st + X_BYTES + W_BYTES + SPILL};
+          st + X_BYTES, st + X_BYTES + W_BYTES + SPILL, f.step, f.glu};
 }
 
 // A segment as the bfloat16 walk sees it, worked out in shared memory at the
@@ -933,7 +953,9 @@ __device__ __forceinline__ WideTile wide_tile(const Walk* walk, int n,
   return w;
 }
 
-// Tile w's feed, as the producer and the consumers both see it.
+// Tile w's feed, as the producer and the consumers both see it; segments
+// are gated only in the epilogue's kernel (EPI).
+template <bool EPI>
 __device__ __forceinline__ Feed feed(const Params& p, const Maps& m,
                                      const WideTile& w) {
   const Segment& sg = p.segments[w.seg];
@@ -945,7 +967,9 @@ __device__ __forceinline__ Feed feed(const Params& p, const Maps& m,
   f.ldx = tn.ldx;
   f.ldw = sg.ldw;
   f.bm = w.bm;
-  f.bn = w.bn;
+  f.glu = EPI && (sg.shape & 4);
+  f.bn = f.glu ? WIDE : w.bn;
+  f.step = f.glu ? sg.cols : 64;
   f.rows = min(tn.rows - w.row0, w.bm);
   f.cols = w.c_end;
   f.depth = tn.depth;
@@ -1060,8 +1084,81 @@ __device__ __forceinline__ void zero_tile(float* o, int ldo, int r_end,
   }
 }
 
-template <bool DENSE>
-__device__ __forceinline__ void run_ring(const Params& p, const Maps& m) {
+// silu in f32 from the fast exponential and division: their few ulps are
+// far below the bfloat16 rounding that follows.
+__device__ __forceinline__ float silu(float v) {
+  return __fdividef(v, 1.f + __expf(-v));
+}
+
+// The row scales of consumer warpgroup g's two rows of a tile (write_tile's
+// layout), read before its K loop so that the loads are in by its end:
+// scale[r] for a live row r of the tile (`scale` at its first row; null:
+// none), 1 elsewhere.
+__device__ __forceinline__ float2 row_scales(const float* scale, int rows,
+                                             int g, int t) {
+  const int r = 64 * g + 16 * (t / 32) + (t % 32) / 4;
+  float2 s = make_float2(1.f, 1.f);
+  if (scale != nullptr) {
+    if (r < rows) s.x = scale[r];
+    if (r + 8 < rows) s.y = scale[r + 8];
+  }
+  return s;
+}
+
+// The epilogue's store of consumer warpgroup g's 64 rows of a tile at o
+// (bfloat16): in live rows each value, gated (GLU: silu of column c times
+// column c + N / 2 of the sums, N / 2 columns) or not, times the row's
+// scale (`scales`, from row_scales), rounded once; zero in the caller's
+// other rows.  The sums' layout is write_tile's.
+template <int N, bool GLU>
+__device__ __forceinline__ void write_bf16(const float (&acc)[64],
+                                          __nv_bfloat16* o, int ldo,
+                                          int rows, int r_end, int c_end,
+                                          float2 scales, int g, int t) {
+  constexpr int COLS = GLU ? N / 2 : N;
+  const int lane = t % 32, warp = t / 32;
+  const bool vec = (reinterpret_cast<uintptr_t>(o) & 3) == 0 && ldo % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * g + 16 * warp + lane / 4 + 8 * h;
+    if (r >= r_end) continue;
+    const bool live = r < rows;
+    const float s = h ? scales.y : scales.x;
+#pragma unroll
+    for (int i = 0; i < COLS / 8; ++i) {
+      const int c = 8 * i + 2 * (lane % 4);
+      float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
+      if constexpr (GLU) {
+        v0 = silu(v0) * acc[4 * (i + COLS / 8) + 2 * h];
+        v1 = silu(v1) * acc[4 * (i + COLS / 8) + 2 * h + 1];
+      }
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(live ? v0 * s : 0.f, live ? v1 * s : 0.f);
+      __nv_bfloat16* q = o + (size_t)r * ldo + c;
+      if (vec && c + 2 <= c_end) {
+        *reinterpret_cast<__nv_bfloat162*>(q) = v;
+      } else {
+        if (c < c_end) q[0] = v.x;
+        if (c + 1 < c_end) q[1] = v.y;
+      }
+    }
+  }
+}
+
+// zero_tile for a bfloat16 output.
+__device__ __forceinline__ void zero_tile(__nv_bfloat16* o, int ldo, int r_end,
+                                          int c_end, int tid) {
+  for (int i = tid; i < r_end * WIDE; i += 256) {
+    const int r = i / WIDE, c = i % WIDE;
+    if (c < c_end) o[(size_t)r * ldo + c] = __float2bfloat16(0.f);
+  }
+}
+
+// The bfloat16 kernels' body.  EPI: the epilogue's kernel (compact only):
+// a bfloat16 output, gated segments, the row scale `scale`.
+template <bool DENSE, bool EPI>
+__device__ __forceinline__ void run_ring(const Params& p, const Maps& m,
+                                         const float* scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const unsigned base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const unsigned bars = base + RING * RING_STAGE;  // RING full, RING empty
@@ -1111,7 +1208,7 @@ __device__ __forceinline__ void run_ring(const Params& p, const Maps& m) {
     for (int b = blockIdx.x; b < live_tiles; b += gridDim.x) {
       const WideTile w = wide_tile(walk, n_segments, live_tiles, DENSE, b);
       const int xm = m.x_map[p.segments[w.seg].tenant], wm = m.w_map[w.seg];
-      const Feed f = feed(p, m, w);
+      const Feed f = feed<EPI>(p, m, w);
       // the staged operands' chunks in slices of full depth
       Chunks cx, cw;
       cx.n = cw.n = -1;
@@ -1125,12 +1222,12 @@ __device__ __forceinline__ void run_ring(const Params& p, const Maps& m) {
         if (t == 0) {
           if (!f.sx || !f.sw)
             bar_expect(full, (f.sx ? 0 : X_BYTES) +
-                                 (f.sw ? 0 : w.bn / 64 * W_BLOCK));
+                                 (f.sw ? 0 : f.bn / 64 * W_BLOCK));
           if (!f.sx) tma_load(sx, &m.maps[xm], full, k0, w.row0);
           if (!f.sw)
-            for (int c = 0; c < w.bn; c += 64)
-              tma_load(sw + c / 64 * W_BLOCK, &m.maps[wm], full, w.col0 + c,
-                       k0);
+            for (int c = 0; c < f.bn; c += 64)
+              tma_load(sw + c / 64 * W_BLOCK, &m.maps[wm], full,
+                       w.col0 + (f.glu ? c / 64 * f.step : c), k0);
         }
         const bool whole = f.depth - k0 >= 64;
         if (f.sx) {
@@ -1168,27 +1265,49 @@ __device__ __forceinline__ void run_ring(const Params& p, const Maps& m) {
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  using Out = typename std::conditional<EPI, __nv_bfloat16, float>::type;
   for (int b = blockIdx.x; b < tiles; b += gridDim.x) {
     const WideTile w = wide_tile(walk, n_segments, live_tiles, DENSE, b);
     const Segment& sg = p.segments[w.seg];
     const Tenant& tn = p.tenants[sg.tenant];
-    float* o = static_cast<float*>(p.bufs[sg.out]) + sg.out_off +
-               (size_t)w.row0 * sg.ldo + w.col0;
+    Out* o = static_cast<Out*>(p.bufs[sg.out]) + sg.out_off +
+             (size_t)w.row0 * sg.ldo + w.col0;
     if (!w.live) {  // dead: zeros, and no K loop
       zero_tile(o, sg.ldo, w.r_end, w.c_end, threadIdx.x - 128);
       continue;
     }
     const int ktiles = (tn.depth + 63) / 64;
-    const Feed f = feed(p, m, w);
+    const Feed f = feed<EPI>(p, m, w);
     const int rows = tn.rows - w.row0;
+    // the epilogue's row scales: the buffer's row of the tile's first row
+    // is out_off / ldo + row0
+    float2 s = make_float2(1.f, 1.f);
+    if constexpr (EPI) {
+      if (scale != nullptr && !(c == 1 && w.bm == NARROW))
+        s = row_scales(scale + sg.out_off / sg.ldo + w.row0, rows, c, t);
+    }
     if (c == 1 && w.bm == NARROW) {  // no rows here
       consume<0>(acc, base, bars, c, t, item, f);
-    } else if (w.bn == WIDE) {
+    } else if (w.bn == WIDE || f.glu) {
       consume<WIDE>(acc, base, bars, c, t, item, f);
-      write_tile<WIDE>(acc, o, sg.ldo, rows, w.r_end, w.c_end, c, t);
+      if constexpr (EPI) {
+        if (f.glu)
+          write_bf16<WIDE, true>(acc, o, sg.ldo, rows, w.r_end, w.c_end, s, c,
+                                 t);
+        else
+          write_bf16<WIDE, false>(acc, o, sg.ldo, rows, w.r_end, w.c_end, s,
+                                  c, t);
+      } else {
+        write_tile<WIDE>(acc, o, sg.ldo, rows, w.r_end, w.c_end, c, t);
+      }
     } else {
       consume<NARROW>(acc, base, bars, c, t, item, f);
-      write_tile<NARROW>(acc, o, sg.ldo, rows, w.r_end, w.c_end, c, t);
+      if constexpr (EPI) {
+        write_bf16<NARROW, false>(acc, o, sg.ldo, rows, w.r_end, w.c_end, s,
+                                  c, t);
+      } else {
+        write_tile<NARROW>(acc, o, sg.ldo, rows, w.r_end, w.c_end, c, t);
+      }
     }
     item += ktiles;
   }
@@ -1219,7 +1338,7 @@ template <typename T>
 __global__ void __launch_bounds__(Cfg<T>::THREADS, Cfg<T>::MIN_BLOCKS)
     dense_kernel(__grid_constant__ const Params p,
                  __grid_constant__ const Maps m) {
-  run_ring<true>(p, m);
+  run_ring<true, false>(p, m, nullptr);
 }
 
 // Compact kernel.  Replaces repro/kernels/partitioned_matmul.py
@@ -1241,7 +1360,16 @@ template <typename T>
 __global__ void __launch_bounds__(Cfg<T>::THREADS, Cfg<T>::MIN_BLOCKS)
     compact_kernel(__grid_constant__ const Params p,
                    __grid_constant__ const Maps m) {
-  run_ring<false>(p, m);
+  run_ring<false, false>(p, m, nullptr);
+}
+
+// The compact kernel with the epilogue: bfloat16 outputs, gated segments
+// and a row scale (see the top of the file).
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, Cfg<T>::MIN_BLOCKS)
+    compact_kernel(__grid_constant__ const Params p,
+                   __grid_constant__ const Maps m, const float* scale) {
+  run_ring<false, true>(p, m, scale);
 }
 
 template <typename T>
@@ -1329,7 +1457,8 @@ void encode_maps(const Params& p, Maps& m) {
         m.x_map[sg.tenant] = static_cast<signed char>(n++);
     }
     const char* w = static_cast<const char*>(p.bufs[sg.w]) + 2 * sg.w_off;
-    if (n < MAX_MAPS && encode(&m.maps[n], w, sg.cols, tn.depth, sg.ldw, 64))
+    const int w_cols = sg.shape & 4 ? 2 * sg.cols : sg.cols;  // gate, up
+    if (n < MAX_MAPS && encode(&m.maps[n], w, w_cols, tn.depth, sg.ldw, 64))
       m.w_map[i] = static_cast<signed char>(n++);
   }
 }
@@ -1337,17 +1466,21 @@ void encode_maps(const Params& p, Maps& m) {
 constexpr int MAX_DEVICES = 64;
 
 // Launches the bfloat16 kernels over `tiles` tiles: one persistent CTA an
-// SM at most.  Their shared memory is set once a device; a device whose
-// blocks cannot have it is refused.
-int launch_ring(bool dense, const Params& p, int tiles, cudaStream_t st) {
+// SM at most; `epi`: the compact kernel with the epilogue, row scale
+// `scale`.  Their shared memory is set once a device; a device whose blocks
+// cannot have it is refused.
+int launch_ring(bool dense, const Params& p, int tiles, cudaStream_t st,
+                bool epi = false, const float* scale = nullptr) {
   static int sms[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
   using Kernel = void (*)(const Params, const Maps);
+  using EpiKernel = void (*)(const Params, const Maps, const float*);
   const Kernel dense_k = dense_kernel<__nv_bfloat16>;
   const Kernel compact_k = compact_kernel<__nv_bfloat16>;
+  const EpiKernel epi_k = compact_kernel<__nv_bfloat16>;
   if (!sms[dev]) {
     int limit = 0, n = 0;
     cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -1359,14 +1492,20 @@ int launch_ring(bool dense, const Params& p, int tiles, cudaStream_t st) {
     err = cudaFuncSetAttribute(dense_k, attr, ring_bytes());
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(compact_k, attr, ring_bytes());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(epi_k, attr, ring_bytes());
     if (err != cudaSuccess) return static_cast<int>(err);
     sms[dev] = n;
   }
   Maps m;
   encode_maps(p, m);
   const int grid = tiles < sms[dev] ? tiles : sms[dev];
-  (dense ? dense_k : compact_k)<<<grid, Cfg<__nv_bfloat16>::THREADS,
-                                  ring_bytes(), st>>>(p, m);
+  if (epi)
+    epi_k<<<grid, Cfg<__nv_bfloat16>::THREADS, ring_bytes(), st>>>(p, m,
+                                                                  scale);
+  else
+    (dense ? dense_k : compact_k)<<<grid, Cfg<__nv_bfloat16>::THREADS,
+                                    ring_bytes(), st>>>(p, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1409,6 +1548,17 @@ int pm_launch(int dense, int bf16, const void* params, int tiles,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_ring(dense != 0, p, tiles, st)
               : launch<float>(dense != 0, p, tiles, st);
+}
+
+// The compact bfloat16 kernel with the epilogue: params and tiles as for
+// pm_launch, the table's outputs bfloat16; scale: a float per row of the
+// output buffer, or null.
+int pm_launch_epilogue(const void* params, int tiles, const float* scale,
+                       void* stream) {
+  Params p;
+  std::memcpy(&p, params, sizeof(Params));
+  return launch_ring(false, p, tiles, static_cast<cudaStream_t>(stream), true,
+                     scale);
 }
 
 }  // extern "C"

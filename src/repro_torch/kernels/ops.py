@@ -30,12 +30,14 @@ from repro_torch.kernels import tracing
 from repro_torch.kernels.partitioned_matmul import (
     BlockAccounting,
     _tenant_matmul,
+    _tenant_matmul_into,
     grid_accounting,
     partitioned_matmul,
 )
 
 # candidate partition-block edge lengths the autotuner searches per dimension
 BLOCK_CANDIDATES = (128, 256, 512)
+EPILOGUES = (None, "swiglu")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -234,6 +236,9 @@ def fused_tenant_gemm(
     block_n: Optional[int] = None,
     grid_mode: str = "auto",
     return_stats: bool = False,
+    epilogue: Optional[str] = None,
+    row_scale: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
 ):
     """Run every tenant's GEMM ``xs[i] @ ws[i]`` in ONE fused kernel call.
 
@@ -247,6 +252,16 @@ def fused_tenant_gemm(
     Block sizes left as ``None`` are autotuned per geometry (see
     :func:`autotune_blocks`); ``grid_mode`` is ``"dense"``, ``"compact"``
     or ``"auto"`` (compact exactly when the ragged mix leaves dead blocks).
+
+    The epilogue (bfloat16 operands and a compact launch only): with
+    ``out``, ONE bfloat16 buffer of (sum T_i, N'), the outputs are its
+    rows, tenant i's after tenant i - 1's, returned as views of it; each
+    value is worked out in f32 and rounded once.  ``epilogue="swiglu"``:
+    every w_i is (K_i, 2 N'), gate then up, and the output is
+    ``silu(x w[:, :N']) * (x w[:, N':])``; else N' = N_i.  ``row_scale``: a
+    float32 (sum T_i,) tensor, row j of the buffer multiplied by
+    ``row_scale[j]``.  The CPU computes the same from the plain version's
+    f32 outputs.
 
     With tracing armed (``tracing.set_tracing``), a card call times its
     four host phases and, under a profiler, marks them as spans.
@@ -268,6 +283,10 @@ def fused_tenant_gemm(
     x_dt, w_dt = _operand_dtypes(xs, ws)
     x_dtype, w_dtype = _dtype_name(x_dt), _dtype_name(w_dt)
     on_card = xs[0].device.type == "cuda"
+    finish = epilogue is not None or row_scale is not None or out is not None
+    if finish:
+        _check_epilogue(xs, shapes, x_dt, grid_mode, epilogue, row_scale, out)
+        grid_mode = "compact"
     # the kernels on the card do not use the partition blocks: they are
     # tuned only where they decide something (the CPU geometry, auto mode,
     # the stats)
@@ -290,7 +309,11 @@ def fused_tenant_gemm(
         )
         grid_mode = "compact" if probe.blocks_live < probe.blocks_total else "dense"
 
-    if on_card:
+    if on_card and finish:
+        outs = _tenant_matmul_into(
+            xs, ws, shapes, out, epilogue == "swiglu", row_scale, clock
+        )
+    elif on_card:
         outs = _tenant_matmul(
             [x if x.dtype == x_dt else x.to(x_dt) for x in xs],
             [w if w.dtype == w_dt else w.to(w_dt) for w in ws],
@@ -299,7 +322,7 @@ def fused_tenant_gemm(
             clock,
         )
     else:
-        out = partitioned_matmul(
+        plain = partitioned_matmul(
             *pad_operands(xs, ws, block_t=block_t, block_k=block_k, block_n=block_n),
             block_t=block_t,
             block_k=block_k,
@@ -308,8 +331,10 @@ def fused_tenant_gemm(
         )
         outs, col = [], 0
         for t, _, n in shapes:
-            outs.append(out[:t, col : col + n])
+            outs.append(plain[:t, col : col + n])
             col += _round_up(n, block_n)
+        if finish:
+            outs = _finish_plain(outs, epilogue, row_scale, out)
     if not return_stats:
         return outs
     if probe is not None and grid_mode == "dense":
@@ -326,6 +351,56 @@ def fused_tenant_gemm(
         accounting=acc,
     )
     return outs, stats
+
+
+def _check_epilogue(xs, shapes, dtype, grid_mode, epilogue, row_scale, out) -> None:
+    """The epilogue's arguments checked against the call."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {EPILOGUES}, got {epilogue!r}")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the epilogue runs on bfloat16 operands only, not {dtype}")
+    if grid_mode == "dense":
+        raise ValueError("the epilogue runs in compact launches only")
+    widths = {n for _, _, n in shapes}
+    if len(widths) != 1:
+        raise ValueError(f"one output buffer needs one output width, got {widths}")
+    (n,) = widths
+    if epilogue == "swiglu":
+        if n % 2:
+            raise ValueError(f"swiglu needs w of gate and up halves, got {n} columns")
+        n //= 2
+    rows = sum(t for t, _, _ in shapes)
+    device = xs[0].device
+    if out is None:
+        raise ValueError("the epilogue writes into a buffer: pass out")
+    if out.shape != (rows, n) or out.dtype != torch.bfloat16:
+        raise ValueError(
+            f"out must be ({rows}, {n}) bfloat16, got {tuple(out.shape)} {out.dtype}"
+        )
+    if out.device != device or (rows and n and out.stride(1) != 1):
+        raise ValueError(f"out must be on {device} with unit-stride rows")
+    if row_scale is not None:
+        if row_scale.shape != (rows,) or row_scale.dtype != torch.float32:
+            raise ValueError(f"row_scale must be ({rows},) float32")
+        if row_scale.device != device or (rows and row_scale.stride(0) != 1):
+            raise ValueError(f"row_scale must be contiguous on {device}")
+
+
+def _finish_plain(outs, epilogue, row_scale, out) -> list[torch.Tensor]:
+    """The epilogue on the plain version's f32 outputs: gated and scaled in
+    f32, rounded once into the rows of ``out``; returns the rows as views
+    of it."""
+    n = out.shape[1]
+    views = list(out.split([o.shape[0] for o in outs]))
+    row = 0
+    for o, v in zip(outs, views):
+        if epilogue == "swiglu":
+            o = F.silu(o[:, :n]) * o[:, n:]
+        if row_scale is not None:
+            o = o * row_scale[row : row + o.shape[0], None]
+        v.copy_(o)
+        row += o.shape[0]
+    return views
 
 
 def sequential_tenant_gemm(

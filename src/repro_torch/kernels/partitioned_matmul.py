@@ -289,18 +289,20 @@ MAX_SEGMENTS = 256
 
 
 def tile_shape(
-    rows: int, cols: int, bf16: bool, narrow: bool = False
+    rows: int, cols: int, bf16: bool, narrow: bool = False, glu: bool = False
 ) -> tuple[int, int]:
     """The CTA tile ``(rows, columns)`` of a segment of ``cols`` columns
     whose tenant has ``rows`` live rows, in a launch that takes narrow
-    tiles throughout or not (``narrow``)."""
+    tiles throughout or not (``narrow``).  A gated segment's (``glu``)
+    tiles are ``NARROW`` output columns wide: each multiplies ``2 NARROW``
+    columns of w, gate and up."""
     if not bf16:
         return TILE_ROWS[0], TILE_COLS[0]
     if narrow:
         return NARROW, NARROW
     return (
         TILE_ROWS[1] if rows > NARROW else NARROW,
-        TILE_COLS[1] if cols > NARROW else NARROW,
+        TILE_COLS[1] if cols > NARROW and not glu else NARROW,
     )
 
 
@@ -320,7 +322,10 @@ class Tenant(NamedTuple):
 class Segment(NamedTuple):
     """A run of ``cols`` columns owned by one tenant: ``w[k][c]`` is element
     ``w_off + k * ldw + c`` of buffer ``w`` and ``out[r][c]`` element
-    ``out_off + r * ldo + c`` of buffer ``out`` (f32)."""
+    ``out_off + r * ldo + c`` of buffer ``out`` (f32; bf16 in a table with
+    the epilogue).  ``glu`` (the epilogue only): w has ``2 cols`` columns,
+    gate then up, and ``out[r][c]`` is ``silu(x[r] . w[:, c]) * (x[r] .
+    w[:, cols + c])``."""
 
     w: int
     w_off: int
@@ -330,6 +335,7 @@ class Segment(NamedTuple):
     ldo: int
     cols: int
     tenant: int
+    glu: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,7 +353,9 @@ class LaunchTable:
     then every segment's zero-writing ones (the dense grid's tiles past the
     caller's rows are never visited), so the live work is shared alike in
     either mode.  ``narrow``: the launch's bfloat16 tiles are all
-    ``NARROW`` x ``NARROW``."""
+    ``NARROW`` x ``NARROW``.  ``epilogue``: the compact bfloat16 kernel
+    with the epilogue, whose outputs are bfloat16, each value rounded once
+    after its segment's gating and the launch's row scale, if any."""
 
     dense: bool
     bf16: bool
@@ -357,6 +365,7 @@ class LaunchTable:
     first: tuple[int, ...]
     grid_rows: int
     grid: int
+    epilogue: bool = False
 
     @functools.cached_property
     def packed(self) -> np.ndarray:
@@ -373,8 +382,9 @@ class LaunchTable:
         off = lay["segments_offset"]
         for s, first in zip(self.segments, self.first):
             fields = (s.w_off, s.out_off, s.w, s.out, s.ldw, s.ldo, s.cols, s.tenant)
-            bm, bn = tile_shape(self.tenants[s.tenant].rows, s.cols, True, self.narrow)
-            shape = (bm == TILE_ROWS[1]) | (bn == TILE_COLS[1]) << 1
+            rows = self.tenants[s.tenant].rows
+            bm, bn = tile_shape(rows, s.cols, True, self.narrow, s.glu)
+            shape = (bm == TILE_ROWS[1]) | (bn == TILE_COLS[1]) << 1 | s.glu << 2
             _SEGMENT.pack_into(blob, off, *fields, first, shape)
             off += _SEGMENT.size
         return blob
@@ -391,23 +401,26 @@ class LaunchTable:
         the walk the kernel makes: a tile at or past the tenant's live rows
         writes zeros, unless it is past the caller's rows (dense), where it
         is skipped.  A live tile whose x or w row pitch is not a 16-byte
-        multiple counts as staged (``TableCounts``)."""
+        multiple counts as staged (``TableCounts``).  A gated segment's
+        tiles multiply gate and up columns both: twice their output
+        columns, issued and useful."""
         mac = fill = issued = useful = staged = 0
         bk, item = K_SLICES[self.bf16], 2 if self.bf16 else 4
         for s in self.segments:
             t = self.tenants[s.tenant]
-            bm, bn = tile_shape(t.rows, s.cols, self.bf16, self.narrow)
+            bm, bn = tile_shape(t.rows, s.cols, self.bf16, self.narrow, s.glu)
             col_tiles = _ceil_div(s.cols, bn)
             live = _ceil_div(t.rows, bm)
             if self.dense:
                 dead = _ceil_div(t.out_rows, bm) - live
             else:
                 dead = max(0, _ceil_div(t.out_rows - live * bm, ZERO_ROWS))
-            macs = col_tiles * live * bm * bn * _ceil_div(t.depth, bk) * bk
+            w_cols = 2 if s.glu else 1
+            macs = col_tiles * live * bm * bn * _ceil_div(t.depth, bk) * bk * w_cols
             mac += col_tiles * live
             fill += col_tiles * dead
             issued += macs
-            useful += t.rows * t.depth * s.cols
+            useful += t.rows * t.depth * s.cols * w_cols
             if (t.ldx * item) % 16 or (s.ldw * item) % 16:
                 staged += macs
         return TableCounts(
@@ -416,14 +429,22 @@ class LaunchTable:
 
 
 def launch_table(
-    tenants, segments, *, dense: bool, bf16: bool, sms: int = 0
+    tenants, segments, *, dense: bool, bf16: bool, sms: int = 0,
+    epilogue: bool = False,
 ) -> LaunchTable:
     """Schedule ``segments`` (each naming a tenant of ``tenants``) as one
     launch of the dense or the compact kernel in float32 or bfloat16, on a
     card of ``sms`` streaming multiprocessors (0: none is assumed, so a
-    bfloat16 launch never takes narrow tiles throughout).  A tenant with no
-    depth has no live rows.  Raises ``ValueError`` past the table's
-    capacity."""
+    bfloat16 launch never takes narrow tiles throughout); ``epilogue``: the
+    compact bfloat16 kernel with the epilogue, the only one that takes
+    gated segments.  A tenant with no depth has no live rows.  Raises
+    ``ValueError`` past the table's capacity."""
+    gated = any(s.glu for s in segments)
+    if (gated and not epilogue) or (epilogue and (dense or not bf16)):
+        raise ValueError(
+            "the epilogue (gated segments, bfloat16 outputs) runs in compact "
+            "bfloat16 launches only"
+        )
     if len(tenants) > MAX_TENANTS:
         raise ValueError(
             f"{len(tenants)} tenants exceed the launch table's capacity "
@@ -451,7 +472,7 @@ def launch_table(
     first, grid = [], 0
     for s in segments:
         t = tenants[s.tenant]
-        bm, bn = tile_shape(t.rows, s.cols, bf16, narrow)
+        bm, bn = tile_shape(t.rows, s.cols, bf16, narrow, s.glu)
         col_tiles = _ceil_div(s.cols, bn)
         live = _ceil_div(t.rows, bm)
         first.append(grid)
@@ -460,7 +481,8 @@ def launch_table(
             dead = t.out_rows - live * bm
             grid += col_tiles * max(0, _ceil_div(dead, ZERO_ROWS))
     return LaunchTable(
-        dense, bf16, narrow, tenants, segments, tuple(first), grid_rows, grid
+        dense, bf16, narrow, tenants, segments, tuple(first), grid_rows, grid,
+        epilogue,
     )
 
 
@@ -506,6 +528,28 @@ def tenant_table(shapes, ldx, ldw, dense, bf16=True, sms=0):
         if t > 0 and n > 0
     ]
     return launch_table(tenants, segments, dense=dense, bf16=bf16, sms=sms)
+
+
+@functools.lru_cache(maxsize=256)
+def epilogue_table(shapes, ldx, ldw, ldo, glu, sms=0):
+    """The table of the per-tenant form with the epilogue (cached as
+    :func:`tenant_table`): for E tenants of ``(T_i, K_i, N_i)`` shapes,
+    buffer ``i`` is x_i (row stride ``ldx[i]``), ``E + i`` is w_i (row
+    stride ``ldw[i]``) and ``2 E`` the one bfloat16 output, row stride
+    ``ldo``, tenant i's rows following tenant i - 1's.  Its columns are
+    ``N_i``, or ``N_i / 2`` where ``glu`` (every segment gated)."""
+    tracing.count_table_build()
+    E = len(shapes)
+    tenants = [Tenant(i, 0, ldx[i], t, k, t) for i, (t, k, _) in enumerate(shapes)]
+    segments, row = [], 0
+    for i, (t, _, n) in enumerate(shapes):
+        cols = n // 2 if glu else n
+        if t > 0 and cols > 0:
+            segments.append(Segment(E + i, 0, ldw[i], 2 * E, row * ldo, ldo, cols, i,
+                                    glu))
+        row += t
+    return launch_table(tenants, segments, dense=False, bf16=True, sms=sms,
+                        epilogue=True)
 
 
 @functools.cache
@@ -565,12 +609,15 @@ def _pack(table: LaunchTable, bufs) -> np.ndarray:
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _launch(table: LaunchTable, bufs, device: torch.device, clock) -> None:
+def _launch(
+    table: LaunchTable, bufs, device: torch.device, clock, scale: int = 0
+) -> None:
     """Launch ``table`` on ``device``'s current stream (no launch when it
     schedules no tile) and count it; ``clock`` (armed calls only) marks the
-    end of the table phase and of the launch phase.  The library checks
-    the kernels' shared memory against the device's limit at its first
-    launch there, and an error it returns raises."""
+    end of the table phase and of the launch phase; ``scale``: the address
+    of the epilogue's row scale (0: none).  The library checks the
+    kernels' shared memory against the device's limit at its first launch
+    there, and an error it returns raises."""
     if table.grid == 0:
         if clock is not None:
             clock.finish()
@@ -582,13 +629,17 @@ def _launch(table: LaunchTable, bufs, device: torch.device, clock) -> None:
         stream = _raw_stream(device.index)
     else:
         stream = torch.cuda.current_stream(device).cuda_stream
-    args = (int(table.dense), int(table.bf16), blob.ctypes.data, table.grid, stream)
     lib = _build.load()
+    if table.epilogue:
+        fn, args = lib.pm_launch_epilogue, (blob.ctypes.data, table.grid, scale, stream)
+    else:
+        fn = lib.pm_launch
+        args = (int(table.dense), int(table.bf16), blob.ctypes.data, table.grid, stream)
     if device.index == torch.cuda.current_device():
-        err = lib.pm_launch(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(device):
-            err = lib.pm_launch(*args)
+            err = fn(*args)
     if err:
         name = "dense" if table.dense else "compact"
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -612,22 +663,31 @@ def tenant_matmul(xs, ws, shapes, dense: bool) -> list[torch.Tensor]:
     return _tenant_matmul(xs, ws, shapes, dense, clock)
 
 
-def _tenant_matmul(xs, ws, shapes, dense, clock) -> list[torch.Tensor]:
-    """:func:`tenant_matmul`, in the phases of ``clock`` where armed."""
-    device, dtype = xs[0].device, xs[0].dtype
-    if dtype not in _ALLOWED_DTYPES:
-        raise TypeError(f"operand dtype {dtype} unsupported: bfloat16 or float32")
-    index = device.index
+def _in_place(xs, ws) -> tuple[list[torch.Tensor], list[int]]:
+    """The operands as the kernels read them, each on the device of
+    ``xs[0]`` with unit-stride rows (made contiguous where not), and their
+    row strides."""
+    index = xs[0].device.index
     operands, lds = [], []
     for a in (*xs, *ws):
         if a.get_device() != index:
-            raise ValueError(f"every operand must be on {device}, got {a.device}")
+            raise ValueError(f"every operand must be on {xs[0].device}, got {a.device}")
         stride = a.stride()
         if stride[-1] != 1:
             a = a.contiguous()
             stride = a.stride()
         operands.append(a)
         lds.append(stride[0])
+    return operands, lds
+
+
+def _tenant_matmul(xs, ws, shapes, dense, clock) -> list[torch.Tensor]:
+    """:func:`tenant_matmul`, in the phases of ``clock`` where armed."""
+    device, dtype = xs[0].device, xs[0].dtype
+    if dtype not in _ALLOWED_DTYPES:
+        raise TypeError(f"operand dtype {dtype} unsupported: bfloat16 or float32")
+    index = device.index
+    operands, lds = _in_place(xs, ws)
     E = len(xs)
     if clock is not None:
         clock.mark()
@@ -641,6 +701,29 @@ def _tenant_matmul(xs, ws, shapes, dense, clock) -> list[torch.Tensor]:
     table = tenant_table(shapes, tuple(lds[:E]), tuple(lds[E:]), dense, bf16, sms)
     _launch(table, (*operands, *outs), device, clock)
     return outs
+
+
+def _tenant_matmul_into(xs, ws, shapes, out, glu, scale, clock) -> list[torch.Tensor]:
+    """The per-tenant form with the epilogue on the card: every tenant's
+    ``xs[i] @ ws[i]``, gated where ``glu`` and times ``scale`` (a float32
+    per row of ``out``, or None) rounded once into its rows of ``out``
+    (bfloat16, unit-stride rows, tenant i's rows after tenant i - 1's), in
+    one launch of the compact kernel; returns those rows as views of
+    ``out``.  The operands are bfloat16 CUDA tensors on ``out``'s device
+    (the caller's check).  Nothing is allocated: the alloc phase is
+    empty."""
+    operands, lds = _in_place(xs, ws)
+    E = len(xs)
+    if clock is not None:
+        clock.mark()
+        clock.mark()
+    sms = sm_count(xs[0].device.index)
+    table = epilogue_table(
+        shapes, tuple(lds[:E]), tuple(lds[E:]), out.stride(0), glu, sms
+    )
+    addr = 0 if scale is None else scale.data_ptr()
+    _launch(table, (*operands, out), xs[0].device, clock, addr)
+    return list(out.split([t for t, _, _ in shapes]))
 
 
 # ---------------------------------------------------------------------------

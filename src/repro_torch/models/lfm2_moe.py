@@ -23,7 +23,8 @@ default): in_proj, out_proj, q/k/v (one call, three tenants), the dense
 FFN's w1/w3 (one call, two tenants) and w2, the router, the experts and the
 output head.  The attention core, the convolution, the norms, RoPE and
 routing are plain PyTorch.  Weights and activations are bfloat16; the
-GEMMs' float32 outputs are rounded to bfloat16.
+GEMMs' float32 outputs are rounded to bfloat16, except the expert
+calls', whose epilogue writes bfloat16 itself.
 """
 
 from __future__ import annotations

@@ -12,17 +12,26 @@ dropped.  The layer runs in four phases:
 * ``dispatch``: the slots sorted by expert into one contiguous buffer, so
   each expert's rows are one view of it;
 * ``experts``: ONE ``gemm`` call over all experts for gate‖up (each expert a
-  tenant with its routed rows, none for an expert no token chose), SiLU·up,
-  then one call for down;
-* ``combine``: each token's slots put back in token order and summed,
-  weighted by their gates.
+  tenant with its routed rows, none for an expert no token chose) whose
+  epilogue writes SiLU·up in bfloat16 into one buffer, then one call for
+  down whose epilogue writes each slot's row times its gate in bfloat16
+  into another;
+* ``combine``: each token's slots gathered back in token order and summed
+  in float32.
 
 ``gemm`` is ``repro_torch.kernels.fused_tenant_gemm`` or anything with its
-call.  Its outputs are float32 and are rounded to bfloat16 here.
+call.  The layer passes it the epilogue's keywords (``epilogue``,
+``row_scale``, ``out``) and uses the buffer as it is only where the
+outputs that come back are its rows, in order.  Otherwise it concatenates
+them, and where they are float32 (a call that took no notice of the
+epilogue) it rounds them to bfloat16 and applies SiLU·up, or the gates in
+float32, itself, as a layer without the epilogue does.
 
 Counters (:func:`moe_stats`): layers run, tokens and token-slots routed,
 the sum over layers of the most rows one expert took, the experts left
-empty and the count reads are always counted.  With tracing armed
+empty, the count reads, the expert calls used from the epilogue's buffer
+and those the layer had to concatenate or finish are always counted.
+With tracing armed
 (``kernels.tracing.set_tracing``) each phase also adds its host
 nanoseconds, each layer its host nanoseconds from the router's launch to
 the last expert call's return and its per-expert row counts, and under a
@@ -51,11 +60,13 @@ NORM_EPS = 1e-6
 
 class _Store:
     __slots__ = ("layers", "tokens", "slots", "max_rows", "empty_experts",
-                 "count_reads", "phase_ns", "armed_layers", "layer_ns", "routed")
+                 "count_reads", "epilogue_calls", "copied_calls", "phase_ns",
+                 "armed_layers", "layer_ns", "routed")
 
     def __init__(self) -> None:
         self.layers = self.tokens = self.slots = 0
         self.max_rows = self.empty_experts = self.count_reads = 0
+        self.epilogue_calls = self.copied_calls = 0
         self.phase_ns = [0] * len(PHASES)
         self.armed_layers = self.layer_ns = 0
         self.routed: list[tuple[int, ...]] = []
@@ -68,9 +79,12 @@ def moe_stats() -> dict:
     """The counters since the process started or the last reset:
     ``layers``, ``tokens``, ``slots`` (token-slots routed), ``max_rows``
     (the sum over layers of the most rows one expert took),
-    ``empty_experts`` (summed over layers), ``count_reads`` (host syncs);
-    armed only: ``phase_ns`` per phase, ``armed_layers``, ``layer_ns``
-    (router launch to the last expert call's return, summed) and ``routed``
+    ``empty_experts`` (summed over layers), ``count_reads`` (host syncs),
+    ``epilogue_calls`` (expert calls whose outputs came back as the rows of
+    the layer's buffer, used with no copy), ``copied_calls`` (those the
+    layer concatenated or finished itself); armed only: ``phase_ns`` per
+    phase, ``armed_layers``, ``layer_ns`` (router launch to the last expert
+    call's return, summed) and ``routed``
     (each armed layer's rows per expert, in order).  A layer run as steps
     (:func:`routed_experts_steps`) leaves out the host time its caller
     spends elsewhere at its yield: its ``route`` phase holds the wait for
@@ -83,6 +97,8 @@ def moe_stats() -> dict:
         "max_rows": s.max_rows,
         "empty_experts": s.empty_experts,
         "count_reads": s.count_reads,
+        "epilogue_calls": s.epilogue_calls,
+        "copied_calls": s.copied_calls,
         "phase_ns": dict(zip(PHASES, s.phase_ns)),
         "armed_layers": s.armed_layers,
         "layer_ns": s.layer_ns,
@@ -181,6 +197,42 @@ def route_top_k(
     return gates * scale, experts
 
 
+def _rows_of(outs, buf: torch.Tensor, counts: list[int]) -> bool:
+    """Whether ``outs`` are ``buf``'s rows, tenant after tenant, as views
+    (an output with no rows only by its shape)."""
+    if len(outs) != len(counts):
+        return False
+    storage, row = buf.untyped_storage().data_ptr(), buf.storage_offset()
+    for o, t in zip(outs, counts):
+        if o.dtype != buf.dtype or o.shape != (t, buf.shape[1]):
+            return False
+        if t and (
+            o.untyped_storage().data_ptr() != storage
+            or o.storage_offset() != row
+            or o.stride() != buf.stride()
+        ):
+            return False
+        row += t * buf.stride(0)
+    return True
+
+
+def _finished(outs, buf: torch.Tensor, counts: list[int], finish) -> torch.Tensor:
+    """An expert call's output as one tensor: ``buf`` where ``outs`` are its
+    rows (the epilogue ran); else the outputs concatenated, each float32
+    one (a call that took no notice of the epilogue) as ``finish(o, row)``
+    makes it, ``row`` its first row in the buffer."""
+    s = _store
+    if _rows_of(outs, buf, counts):
+        s.epilogue_calls += 1
+        return buf
+    s.copied_calls += 1
+    parts, row = [], 0
+    for o, t in zip(outs, counts):
+        parts.append(finish(o, row) if o.dtype == torch.float32 else o)
+        row += t
+    return torch.cat(parts)
+
+
 def routed_experts(
     p: Params,
     x: torch.Tensor,
@@ -251,21 +303,32 @@ def routed_experts_steps(
     # experts: every expert a tenant, with its own run of the sorted rows.
     # Compact: the rows change every call, and "auto" would work out each
     # new geometry's block accounting on the host to choose what compact
-    # already is where every tenant's output has only its own rows
-    gu = torch.cat(gemm(list(rows.split(counts)), list(p["gate_up"].unbind(0)),
-                        grid_mode="compact"))
-    f = gu.shape[1] // 2
-    act = F.silu(gu[:, :f].to(x.dtype)) * gu[:, f:].to(x.dtype)
-    del gu
-    y = torch.cat(gemm(list(act.split(counts)), list(p["down"].unbind(0)),
-                       grid_mode="compact")).to(x.dtype)
+    # already is where every tenant's output has only its own rows.  The
+    # epilogue writes SiLU·up into ``act`` and each slot's row times its
+    # gate into ``y``, both bfloat16
+    n_slots, f = flat.numel(), p["gate_up"].shape[2] // 2
+    act = x.new_empty((n_slots, f))
+    act = _finished(
+        gemm(list(rows.split(counts)), list(p["gate_up"].unbind(0)),
+             grid_mode="compact", epilogue="swiglu", out=act),
+        act, counts,
+        lambda o, row: F.silu(o[:, :f].to(x.dtype)) * o[:, f:].to(x.dtype),
+    )
+    slot_gates = gates.reshape(-1)[order]
+    y = x.new_empty((n_slots, d))
+    y = _finished(
+        gemm(list(act.split(counts)), list(p["down"].unbind(0)),
+             grid_mode="compact", row_scale=slot_gates, out=y),
+        y, counts,
+        lambda o, row: o.to(x.dtype).float() * slot_gates[row : row + len(o), None],
+    )
     if clock is not None:
         clock.mark()
 
-    # combine: back in (token, slot) order, weighted by the gates
-    by_token = torch.empty_like(y)
-    by_token[order] = y
-    out = (by_token.view(T, top_k, d).float() * gates[..., None]).sum(1)
+    # combine: back in (token, slot) order by a gather, summed in f32
+    by_token = torch.empty_like(order)
+    by_token[order] = torch.arange(n_slots, device=order.device)
+    out = y.index_select(0, by_token).view(T, top_k, d).sum(1, dtype=torch.float32)
     if clock is not None:
         clock.mark()
         s.armed_layers += 1

@@ -276,6 +276,145 @@ def test_wrapper_checks_devices_and_layout(cuda):
         partitioned_matmul(xs, torch.ones((128, 128), device=cuda), [3], [128])
 
 
+# ---------------------------------------------------------------------------
+# the epilogue: the expert layer's calls, bfloat16 SiLU·up and gate-weighted
+# rows written into one buffer by the compact kernel's own instantiation
+# ---------------------------------------------------------------------------
+
+# tokens x 4 slots of the LFM2 cell's prefill step, its widths, 64 experts
+CELL_SLOTS, CELL_D, CELL_F, CELL_E = 16_384 * 4, 2048, 1536, 64
+
+
+def _cell_rows(device):
+    """Rows per expert of one routed layer: ~1,024 each, four empty."""
+    gen = torch.Generator().manual_seed(40)
+    rows = torch.multinomial(torch.ones(CELL_E), CELL_SLOTS, replacement=True,
+                             generator=gen)
+    counts = torch.bincount(rows, minlength=CELL_E).tolist()
+    for e in (3, 17, 40, 63):
+        counts[(e + 1) % CELL_E] += counts[e]
+        counts[e] = 0
+    return counts
+
+
+def _expert_operands(rows, d, n, device, seed, extra=0, offset=0):
+    """One sorted row buffer split into the experts' x and a (E, d, n) stack
+    of w, bfloat16, rows ``extra`` values longer than their columns and
+    ``offset`` values into their storage."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(r, c, scale):
+        flat = torch.randn(offset + r * (c + extra), generator=gen, device=device)
+        return (flat * scale).to(torch.bfloat16)[offset:].view(r, c + extra)[:, :c]
+
+    x = draw(sum(rows), d, 1.0)
+    stack = draw(len(rows) * d, n, d**-0.5)
+    return list(x.split(rows)), [stack[e * d : (e + 1) * d] for e in range(len(rows))]
+
+
+def _held(got, want32):
+    """``got`` (bfloat16) is ``want32`` rounded: within one bfloat16 ulp."""
+    torch.testing.assert_close(got.float(), want32, rtol=2**-7, atol=1e-5)
+
+
+def _epilogue_calls(cuda, rows, d, f, **view):
+    """gate‖up with the SwiGLU epilogue and down with a row scale, each into
+    one buffer, against the default path's f32 outputs; one launch each."""
+    xs, ws = _expert_operands(rows, d, 2 * f, cuda, seed=41, **view)
+    S = sum(rows)
+    act = torch.empty((S, f), dtype=torch.bfloat16, device=cuda)
+    before = launch_counts()
+    outs = fused_tenant_gemm(xs, ws, grid_mode="compact", epilogue="swiglu", out=act)
+    assert launch_counts()["compact"] == before["compact"] + 1
+    ref = fused_tenant_gemm(xs, ws, grid_mode="compact")
+    for o, t, y in zip(outs, act.split(rows), ref):
+        assert o.data_ptr() == t.data_ptr() and o.shape == t.shape
+        _held(o, torch.nn.functional.silu(y[:, :f]) * y[:, f:])
+    downs = _expert_operands(rows, f, d, cuda, seed=42, **view)[1]
+    gates = torch.rand(S, generator=torch.Generator(device=cuda).manual_seed(43),
+                       device=cuda)
+    y = torch.empty((S, d), dtype=torch.bfloat16, device=cuda)
+    before = launch_counts()
+    outs = fused_tenant_gemm(act.split(rows), downs, grid_mode="compact",
+                             row_scale=gates, out=y)
+    assert launch_counts()["compact"] == before["compact"] + 1
+    ref = fused_tenant_gemm(act.split(rows), downs, grid_mode="compact")
+    for o, r, g in zip(outs, ref, gates.split(rows)):
+        # the same sums, times the same gate, rounded once
+        assert torch.equal(o, (r * g[:, None]).to(torch.bfloat16))
+    return act, y
+
+
+def test_the_epilogue_at_the_cell_s_expert_calls(cuda):
+    """64 ragged experts of ~1,024 rows at d = 2,048 and f = 1,536: the
+    first tenants TMA-fed, the rest past the launch's tensor maps staged."""
+    _epilogue_calls(cuda, _cell_rows(cuda), CELL_D, CELL_F)
+
+
+@pytest.mark.parametrize(
+    "view",
+    [{}, {"extra": 1, "offset": 1}, {"extra": 3, "offset": 2}],
+    ids=["contiguous", "2-byte", "4-byte"],
+)
+@pytest.mark.parametrize("f", [96, 33])
+def test_the_epilogue_at_unaligned_pitches(cuda, f, view):
+    """Rows on 16-, 2- and 4-byte boundaries (TMA, the staged feed), an f
+    that is not a multiple of 64 (the up block past w's last column)."""
+    _epilogue_calls(cuda, [0, 37, 129, 1, 200, 0, 64, 65], 147, f, **view)
+
+
+def test_the_epilogue_writes_only_the_buffer_s_columns(cuda):
+    rows, d, f = [0, 37, 129, 1, 200], 147, 96
+    xs, ws = _expert_operands(rows, d, 2 * f, cuda, seed=44)
+    wide = torch.full((sum(rows), f + 3), 5.0, dtype=torch.bfloat16, device=cuda)
+    buf = wide[:, 1 : f + 1]  # rows of an odd pitch: no 4-byte stores
+    scale = torch.linspace(-1, 1, sum(rows), device=cuda)
+    outs = fused_tenant_gemm(xs, ws, epilogue="swiglu", row_scale=scale, out=buf)
+    assert torch.all(wide[:, 0] == 5) and torch.all(wide[:, f + 1 :] == 5)
+    for o, y, s in zip(outs, fused_tenant_gemm(xs, ws, grid_mode="compact"),
+                       scale.split(rows)):
+        _held(o, torch.nn.functional.silu(y[:, :f]) * y[:, f:] * s[:, None])
+
+
+def test_the_epilogue_refuses_dense_and_float32(cuda):
+    xs = [torch.ones((4, 8), device=cuda)]
+    ws = [torch.ones((8, 16), device=cuda)]
+    with pytest.raises(TypeError):
+        fused_tenant_gemm(xs, ws, epilogue="swiglu")
+    with pytest.raises(ValueError, match="compact"):
+        fused_tenant_gemm([xs[0].bfloat16()], [ws[0].bfloat16()],
+                          epilogue="swiglu", grid_mode="dense")
+
+
+# heavy-b128's first wave at batch 8 (table1-heavy, layer 0 of each tenant)
+HEAVY_WAVE = [(24200, 363, 96), (100352, 147, 64), (100352, 147, 64),
+              (432, 900, 100), (432, 900, 64), (2048, 256, 256), (2888, 153, 256),
+              (1024, 512, 1536)]
+# sha256 of the wave's f32 outputs from the operands of ``_wave_digest``,
+# taken with the kernels as they were before the epilogue was added, on an
+# NVIDIA H100 80GB HBM3: the default path's arithmetic is unchanged
+HEAVY_WAVE_DIGEST = "a29459f25020cc5a2b26578ef47780343705ab7793039fb0180e0bf500a331d0"
+
+
+def _wave_digest(device):
+    import hashlib
+
+    gen = torch.Generator().manual_seed(45)
+    xs = [torch.randn((t, k), generator=gen).to(torch.bfloat16).to(device)
+          for t, k, _ in HEAVY_WAVE]
+    ws = [torch.randn((k, n), generator=gen).to(torch.bfloat16).to(device)
+          for _, k, n in HEAVY_WAVE]
+    h = hashlib.sha256()
+    for o in fused_tenant_gemm(xs, ws, grid_mode="auto"):
+        h.update(o.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_the_default_path_is_the_parent_s_bit_for_bit(cuda):
+    """A call without the epilogue computes what it computed before it."""
+    assert _wave_digest(cuda) == HEAVY_WAVE_DIGEST
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

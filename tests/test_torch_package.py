@@ -300,6 +300,15 @@ ACCEPTED = {
         ["block_t", "block_k", "block_n", "x_dtype", "w_dtype"], None,
         "a Pallas block's VMEM bytes: TPU-only",
     ),
+    "repro.kernels.ops.fused_tenant_gemm": (
+        ["xs", "ws", "block_t", "block_k", "block_n", "grid_mode",
+         "vmem_budget_bytes", "interpret", "return_stats"],
+        ["xs", "ws", "block_t", "block_k", "block_n", "grid_mode",
+         "return_stats", "epilogue", "row_scale", "out"],
+        "the port's expert layer finishes its calls in the kernel's epilogue "
+        "(SiLU·up, a row scale, one bf16 buffer), which the reference's "
+        "kernel lacks; the TPU-only parameters as JAX_ONLY says",
+    ),
 }
 
 _SIGNATURES = r"""
