@@ -160,15 +160,16 @@ __device__ __forceinline__ bool aligned16(const void* p, int ld, int item) {
 }
 
 // How a K slice of an operand reaches shared memory, from its tile origin
-// and row pitch.
-enum Path { CP16, CP4, REGS };
+// and row pitch: 16-byte or 4-byte cp.async.  A float32 operand's rows are
+// 4-byte aligned, so no slice of one is ever UNALIGNED (that copies nothing).
+enum Path { CP16, CP4, UNALIGNED };
 
 template <typename T>
 __device__ __forceinline__ Path copy_path(const T* p, int ld) {
   if (aligned16(p, ld, sizeof(T))) return CP16;
   const bool a4 = (reinterpret_cast<uintptr_t>(p) & 3) == 0;
   if (a4 && (ld * (int)sizeof(T)) % 4 == 0) return CP4;
-  return REGS;  // bfloat16 rows on 2-byte boundaries
+  return UNALIGNED;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -199,22 +200,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copies an R x C tile of a row-major global matrix into shared memory
 // (row pitch P), 16-byte chunks, zero past (r_lim, c_lim).  `async` uses
 // 16-byte cp.async and needs 16-byte aligned rows, `async4` 4-byte cp.async
-// and 4-byte aligned rows; `fetch` + `store` go through registers at any
-// alignment.
+// and 4-byte aligned rows.
 template <typename T, int R, int C, int P, int THREADS>
 struct TileCopy {
-  using Bits = typename std::conditional<sizeof(T) == 4, unsigned int,
-                                         unsigned short>::type;
   static constexpr int V = 16 / sizeof(T);  // elements per chunk
   static constexpr int CPR = C / V;         // chunks per row
   static constexpr int N = R * CPR / THREADS;
   static_assert(C % V == 0 && (R * CPR) % THREADS == 0, "tile split");
-
-  union Chunk {
-    uint4 u;
-    Bits b[V];
-  };
-  Chunk reg[N];
 
   __device__ __forceinline__ void async(T* s, const T* g, int ld, int r_lim,
                                         int c_lim) {
@@ -241,30 +233,6 @@ struct TileCopy {
         const T* src = n > 0 ? g + (size_t)r * ld + c + q : g;
         cp_async4(s + r * P + c + q, src, n * (int)sizeof(T));
       }
-    }
-  }
-
-  __device__ __forceinline__ void fetch(const T* g, int ld, int r_lim,
-                                        int c_lim) {
-    const Bits* gb = reinterpret_cast<const Bits*>(g);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      const int r = i / CPR, c = (i % CPR) * V;
-      const bool row_ok = r < r_lim;
-#pragma unroll
-      for (int q = 0; q < V; ++q)
-        reg[j].b[q] =
-            row_ok && c + q < c_lim ? __ldg(gb + (size_t)r * ld + c + q) : 0;
-    }
-  }
-
-  __device__ __forceinline__ void store(T* s) const {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      const int r = i / CPR, c = (i % CPR) * V;
-      *reinterpret_cast<uint4*>(s + r * P + c) = reg[j].u;
     }
   }
 };
@@ -427,30 +395,16 @@ __device__ __forceinline__ void live_tile(const T* x, int ldx, int rows,
       ca.async(sa(s), ga, ldx, rows, depth - k0);
     else if (pa == CP4)
       ca.async4(sa(s), ga, ldx, rows, depth - k0);
-    else if constexpr (sizeof(T) == 2)
-      ca.fetch(ga, ldx, rows, depth - k0);
     if (pb == CP16)
       cb.async(sb(s), gb, ldw, depth - k0, c_end);
     else if (pb == CP4)
       cb.async4(sb(s), gb, ldw, depth - k0, c_end);
-    else if constexpr (sizeof(T) == 2)
-      cb.fetch(gb, ldw, depth - k0, c_end);
-  };
-  // land the register-staged part of slice kt in stage s
-  auto land = [&](int s) {
-    if constexpr (sizeof(T) == 2) {
-      if (pa == REGS) ca.store(sa(s));
-      if (pb == REGS) cb.store(sb(s));
-    }
   };
 
   typename Acc<T>::type acc = {};
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) {
-      start(s, s);
-      land(s);
-    }
+    if (s < ktiles) start(s, s);
     cp_async_commit();
   }
   for (int kt = 0; kt < ktiles; ++kt) {
@@ -461,7 +415,6 @@ __device__ __forceinline__ void live_tile(const T* x, int ldx, int rows,
     if (more) start(nk, nk % STAGES);
     cp_async_commit();
     acc.mac(sa(kt % STAGES), sb(kt % STAGES));
-    if (more) land(nk % STAGES);
   }
   cp_async_wait<0>();
   acc.finish(smem_raw);

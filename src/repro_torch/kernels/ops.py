@@ -10,10 +10,14 @@ columns a contiguous run of blocks: the paper's vertical slices), the
 outputs split back out.  The zero padding is what makes that ragged fusion
 exact (see ``ref.py``).
 
-On top of the raw kernel this layer picks the grid mode (``"auto"``: the
-compact live-tile launch whenever the ragged mix leaves dead blocks, the
-dense launch when every block is live) and, when not pinned, the partition
-block sizes (ranked by predicted fetched bytes per useful MAC).
+On top of the raw kernel this layer picks the grid mode, ``"auto"``: the
+card takes the dense launch exactly when every tenant has the same rows
+and depth, so the dense grid has no dead tile (``_dense_fits``), and the
+compact live-tile launch otherwise; the CPU makes the JAX package's
+choice, the compact launch whenever the ragged mix leaves a dead partition
+block.  The partition block sizes, when not pinned, are tuned only where
+they decide something (the CPU geometry, the stats), ranked by predicted
+fetched bytes per useful MAC.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import tracing
 from repro_torch.kernels.partitioned_matmul import (
     BlockAccounting,
+    _dense_fits,
     _tenant_matmul,
     _tenant_matmul_into,
     grid_accounting,
@@ -249,9 +254,13 @@ def fused_tenant_gemm(
     tensors the outputs are views into the plain version's padded output.
     The stats count the partition-block model of the JAX package either way.
 
-    Block sizes left as ``None`` are autotuned per geometry (see
-    :func:`autotune_blocks`); ``grid_mode`` is ``"dense"``, ``"compact"``
-    or ``"auto"`` (compact exactly when the ragged mix leaves dead blocks).
+    ``grid_mode`` is ``"dense"``, ``"compact"`` or ``"auto"``: on the card,
+    dense exactly when every tenant has the same (T_i, K_i); on the CPU,
+    compact exactly when the ragged mix leaves dead partition blocks.  Block
+    sizes left as ``None`` are autotuned per geometry (see
+    :func:`autotune_blocks`) where they are used: always on the CPU, on the
+    card only for the stats, since the CUDA kernels tile by their own CTA
+    shape.
 
     The epilogue (bfloat16 operands and a compact launch only): with
     ``out``, ONE bfloat16 buffer of (sum T_i, N'), the outputs are its
@@ -266,9 +275,8 @@ def fused_tenant_gemm(
     With tracing armed (``tracing.set_tracing``), a card call times its
     four host phases and, under a profiler, marks them as spans.
     """
-    clock = None
-    if tracing.armed and xs and xs[0].device.type == "cuda":
-        clock = tracing.Clock()
+    on_card = bool(xs) and xs[0].device.type == "cuda"
+    clock = tracing.Clock() if tracing.armed and on_card else None
     if len(xs) != len(ws) or not xs:
         raise ValueError("need one (x, w) pair per tenant")
     for i, (xsh, wsh) in enumerate(zip([x.shape for x in xs], [w.shape for w in ws])):
@@ -278,20 +286,14 @@ def fused_tenant_gemm(
         raise ValueError(
             f"grid_mode must be 'auto', 'dense' or 'compact', got {grid_mode!r}"
         )
-
     shapes = tuple((x.shape[0], x.shape[1], w.shape[1]) for x, w in zip(xs, ws))
     x_dt, w_dt = _operand_dtypes(xs, ws)
     x_dtype, w_dtype = _dtype_name(x_dt), _dtype_name(w_dt)
-    on_card = xs[0].device.type == "cuda"
     finish = epilogue is not None or row_scale is not None or out is not None
     if finish:
         _check_epilogue(xs, shapes, x_dt, grid_mode, epilogue, row_scale, out)
         grid_mode = "compact"
-    # the kernels on the card do not use the partition blocks: they are
-    # tuned only where they decide something (the CPU geometry, auto mode,
-    # the stats)
-    blocks_needed = not on_card or grid_mode == "auto" or return_stats
-    if blocks_needed and (block_t is None or block_k is None or block_n is None):
+    if (not on_card or return_stats) and None in (block_t, block_k, block_n):
         tuned = autotune_blocks(
             shapes,
             x_dtype,
@@ -302,26 +304,27 @@ def fused_tenant_gemm(
         block_k = block_k if block_k is not None else tuned[1]
         block_n = block_n if block_n is not None else tuned[2]
 
-    probe = None
-    if grid_mode == "auto":
-        probe = _geometry_accounting(
-            shapes, block_t, block_k, block_n, x_dtype, w_dtype, "dense"
-        )
-        grid_mode = "compact" if probe.blocks_live < probe.blocks_total else "dense"
-
-    if on_card and finish:
-        outs = _tenant_matmul_into(
-            xs, ws, shapes, out, epilogue == "swiglu", row_scale, clock
-        )
-    elif on_card:
-        outs = _tenant_matmul(
-            [x if x.dtype == x_dt else x.to(x_dt) for x in xs],
-            [w if w.dtype == w_dt else w.to(w_dt) for w in ws],
-            shapes,
-            grid_mode == "dense",
-            clock,
-        )
+    if on_card:
+        if grid_mode == "auto":
+            grid_mode = "dense" if _dense_fits(shapes) else "compact"
+        if finish:
+            outs = _tenant_matmul_into(
+                xs, ws, shapes, out, epilogue == "swiglu", row_scale, clock
+            )
+        else:
+            outs = _tenant_matmul(
+                [x if x.dtype == x_dt else x.to(x_dt) for x in xs],
+                [w if w.dtype == w_dt else w.to(w_dt) for w in ws],
+                shapes,
+                grid_mode == "dense",
+                clock,
+            )
     else:
+        if grid_mode == "auto":
+            probe = _geometry_accounting(
+                shapes, block_t, block_k, block_n, x_dtype, w_dtype, "dense"
+            )
+            grid_mode = "compact" if probe.blocks_live < probe.blocks_total else "dense"
         plain = partitioned_matmul(
             *pad_operands(xs, ws, block_t=block_t, block_k=block_k, block_n=block_n),
             block_t=block_t,
@@ -335,22 +338,13 @@ def fused_tenant_gemm(
             col += _round_up(n, block_n)
         if finish:
             outs = _finish_plain(outs, epilogue, row_scale, out)
+
     if not return_stats:
         return outs
-    if probe is not None and grid_mode == "dense":
-        acc = probe
-    else:
-        acc = _geometry_accounting(
-            shapes, block_t, block_k, block_n, x_dtype, w_dtype, grid_mode
-        )
-    stats = FusedGemmStats(
-        grid_mode=grid_mode,
-        block_t=block_t,
-        block_k=block_k,
-        block_n=block_n,
-        accounting=acc,
+    acc = _geometry_accounting(
+        shapes, block_t, block_k, block_n, x_dtype, w_dtype, grid_mode
     )
-    return outs, stats
+    return outs, FusedGemmStats(grid_mode, block_t, block_k, block_n, acc)
 
 
 def _check_epilogue(xs, shapes, dtype, grid_mode, epilogue, row_scale, out) -> None:

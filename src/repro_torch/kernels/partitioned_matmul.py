@@ -530,6 +530,13 @@ def tenant_table(shapes, ldx, ldw, dense, bf16=True, sms=0):
     return launch_table(tenants, segments, dense=dense, bf16=bf16, sms=sms)
 
 
+def _dense_fits(shapes) -> bool:
+    """Whether an ``"auto"`` call of the per-tenant form takes the dense
+    kernel: exactly when every tenant of the ``(T_i, K_i, N_i)`` shapes has
+    the same rows and depth, so the dense grid has no dead tile to gate."""
+    return len({(t, k) for t, k, _ in shapes}) == 1
+
+
 @functools.lru_cache(maxsize=256)
 def epilogue_table(shapes, ldx, ldw, ldo, glu, sms=0):
     """The table of the per-tenant form with the epilogue (cached as

@@ -7,8 +7,8 @@ table) when it is read.  The host phases of a card call are timed, and
 marked as ``torch.profiler`` spans, only while tracing is armed
 (:func:`set_tracing`):
 
-* ``prepare``: shape and dtype checks, the grid-mode choice (autotune and
-  accounting), the per-operand device and stride reads;
+* ``prepare``: shape and dtype checks, the grid-mode choice (from the
+  tenants' shapes), the per-operand device and stride reads;
 * ``alloc``: the output ``torch.empty``;
 * ``table``: the launch-table lookup (or build) and its packing;
 * ``launch``: the device check, the stream handle, the library, the ctypes

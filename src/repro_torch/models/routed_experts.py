@@ -301,16 +301,13 @@ def routed_experts_steps(
         clock.mark()
 
     # experts: every expert a tenant, with its own run of the sorted rows.
-    # Compact: the rows change every call, and "auto" would work out each
-    # new geometry's block accounting on the host to choose what compact
-    # already is where every tenant's output has only its own rows.  The
-    # epilogue writes SiLU·up into ``act`` and each slot's row times its
-    # gate into ``y``, both bfloat16
+    # The epilogue (a compact launch) writes SiLU·up into ``act`` and each
+    # slot's row times its gate into ``y``, both bfloat16
     n_slots, f = flat.numel(), p["gate_up"].shape[2] // 2
     act = x.new_empty((n_slots, f))
     act = _finished(
         gemm(list(rows.split(counts)), list(p["gate_up"].unbind(0)),
-             grid_mode="compact", epilogue="swiglu", out=act),
+             epilogue="swiglu", out=act),
         act, counts,
         lambda o, row: F.silu(o[:, :f].to(x.dtype)) * o[:, f:].to(x.dtype),
     )
@@ -318,7 +315,7 @@ def routed_experts_steps(
     y = x.new_empty((n_slots, d))
     y = _finished(
         gemm(list(act.split(counts)), list(p["down"].unbind(0)),
-             grid_mode="compact", row_scale=slot_gates, out=y),
+             row_scale=slot_gates, out=y),
         y, counts,
         lambda o, row: o.to(x.dtype).float() * slot_gates[row : row + len(o), None],
     )

@@ -410,6 +410,34 @@ def _wave_digest(device):
     return h.hexdigest()
 
 
+@pytest.mark.parametrize(
+    "shapes, dense",
+    [
+        ([(300, 200, 100), (300, 200, 7), (300, 200, 513)], True),  # N differs
+        ([(300, 200, 100), (299, 200, 100)], False),  # rows differ
+        ([(300, 200, 100), (300, 201, 100)], False),  # depths differ
+        (HEAVY_WAVE, False),
+    ],
+    ids=["same-rows-and-depth", "ragged-rows", "ragged-depth", "heavy-wave"],
+)
+def test_an_auto_call_on_the_card_reads_only_the_shapes(cuda, shapes, dense):
+    """The card's auto mode takes the kernel the tenants' shapes name and
+    neither tunes nor counts the JAX package's partition blocks."""
+    xs, ws = _operands(shapes, torch.bfloat16, cuda, integer=True, seed=7)
+    tuned = ops.autotune_blocks.cache_info()
+    counted = ops._geometry_accounting.cache_info()
+    before = launch_counts()
+    outs = fused_tenant_gemm(xs, ws, grid_mode="auto")
+    after = launch_counts()
+    assert ops.autotune_blocks.cache_info() == tuned
+    assert ops._geometry_accounting.cache_info() == counted
+    assert pm._dense_fits(tuple(shapes)) == dense
+    assert after["dense"] == before["dense"] + dense
+    assert after["compact"] == before["compact"] + (not dense)
+    for x, w, out in zip(xs, ws, outs):
+        assert torch.equal(out, x.float() @ w.float())
+
+
 def test_the_default_path_is_the_parent_s_bit_for_bit(cuda):
     """A call without the epilogue computes what it computed before it."""
     assert _wave_digest(cuda) == HEAVY_WAVE_DIGEST

@@ -39,6 +39,7 @@ from repro_torch.kernels.ops import _geometry_accounting  # noqa: E402
 from repro_torch.kernels.partitioned_matmul import (  # noqa: E402
     K_SLICES,
     ZERO_ROWS,
+    _dense_fits,
     tile_shape,
 )
 
@@ -282,12 +283,9 @@ def test_feed_staged_macs_count_the_tiles_off_16_byte_rows(case):
     assert both.macs_issued > counts.macs_issued
 
 
-def _plan_counts(config: str) -> TableCounts:
-    """CTAs and multiply-adds of one round of a benchmark configuration at
-    the mix's batch, each wave's grid mode chosen as ``fused_tenant_gemm``'s
-    auto mode chooses it (compact exactly where the partition blocks leave a
-    dead block), its launch table as the card path builds it for contiguous
-    operands."""
+def _plan_waves(config: str) -> list[tuple[tuple[int, int, int], ...]]:
+    """Each wave's ``(T, K, N)`` shapes in one round of a Table-1
+    configuration at the benchmark mix's batch."""
     sys.path.insert(0, str(ROOT))
     try:
         from cardbench import harness
@@ -296,17 +294,95 @@ def _plan_counts(config: str) -> TableCounts:
     cfg = harness.config(config)
     waves = harness.module("drivers", "gemm_rounds").waves
     batch = harness.mix("rounds-b128")["batch"]
+    return [tuple(s for _, s in wave) for wave in waves(cfg, batch)]
+
+
+def _plan_counts(config: str) -> TableCounts:
+    """CTAs and multiply-adds of one round of a benchmark configuration at
+    the mix's batch, each wave's grid mode chosen as ``fused_tenant_gemm``'s
+    auto mode chooses it on the card (dense exactly where every tenant has
+    the same rows and depth), its launch table as the card path builds it
+    for contiguous operands."""
     total = TableCounts(0, 0, 0, 0, 0, 0, 0)
-    for wave in waves(cfg, batch):
-        shapes = tuple(s for _, s in wave)
-        blocks = autotune_blocks(shapes, "bfloat16", "bfloat16", grid_mode="compact")
-        probe = _geometry_accounting(shapes, *blocks, "bfloat16", "bfloat16", "dense")
-        dense = probe.blocks_live == probe.blocks_total
+    for shapes in _plan_waves(config):
         lds = tuple(k for _, k, _ in shapes), tuple(n for _, _, n in shapes)
-        table = tenant_table(shapes, *lds, dense, True, H100_SMS)
+        table = tenant_table(shapes, *lds, _dense_fits(shapes), True, H100_SMS)
         assert not table.narrow  # every wave has more tiles than the card SMs
         total = TableCounts(*(a + b for a, b in zip(total, table.counts)))
     return total
+
+
+def _lfm2_calls(monkeypatch) -> set[tuple[tuple[int, int, int], ...]]:
+    """The shapes of every GEMM call of one ``lfm2-24b-prefill-16k`` round
+    but the expert calls (which take the epilogue, so are compact): the
+    model's prefill of 4 x 4,096 tokens run on the meta device at the
+    published widths, each expert given an even share of the rows."""
+    from repro_torch.models import lfm2_moe
+    from repro_torch.models import routed_experts as moe
+
+    with open(ROOT / "cardbench" / "configs" / "lfm2-24b-a2b.json") as f:
+        cfg = lfm2_moe.Lfm2MoeConfig.from_config(json.load(f))
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [meta(v) for v in tree]
+        return torch.empty(tree, dtype=torch.bfloat16, device="meta")
+
+    class EvenCounts:
+        def __init__(self, counts):
+            self.experts = counts.shape[0]
+
+        def get(self):
+            rows = 4 * 4096 * cfg.num_experts_per_tok
+            return [rows // self.experts] * self.experts
+
+    calls = set()
+
+    def gemm(xs, ws, **kw):
+        shapes = tuple((x.shape[0], x.shape[1], w.shape[1]) for x, w in zip(xs, ws))
+        if "out" in kw:
+            return list(kw["out"].split([t for t, _, _ in shapes]))
+        calls.add(shapes)
+        return [torch.empty((t, n), device="meta") for t, _, n in shapes]
+
+    monkeypatch.setattr(moe, "_CountRead", EvenCounts)
+    ids = torch.zeros((4, 4096), dtype=torch.int64, device="meta")
+    try:
+        lfm2_moe.prefill(meta(lfm2_moe.param_shapes(cfg)), cfg, ids, gemm=gemm)
+    finally:
+        moe.reset_moe_stats()
+    return calls
+
+
+@pytest.mark.parametrize(
+    "plan, dtype",
+    [
+        ("table1-heavy", "bfloat16"),
+        ("table1-heavy", "float32"),
+        ("table1-light", "bfloat16"),
+        ("table1-light", "float32"),
+        ("lfm2-24b-a2b", "bfloat16"),
+    ],
+)
+def test_the_card_s_mode_rule_makes_the_partition_blocks_choice(plan, dtype,
+                                                                monkeypatch):
+    """On every call of the benchmark's cells (all Table-1 waves, every
+    LFM2 call but the experts'), dense where every tenant has the same
+    (T, K) is the choice the CPU path makes from the JAX package's
+    autotuned partition blocks: dense exactly where they leave no dead
+    block."""
+    if plan == "lfm2-24b-a2b":
+        calls = sorted(_lfm2_calls(monkeypatch))
+        assert len(calls) == 7
+    else:
+        calls = _plan_waves(plan)
+        assert len(calls) == {"table1-heavy": 60, "table1-light": 17}[plan]
+    for shapes in calls:
+        blocks = autotune_blocks(shapes, dtype, dtype, grid_mode="compact")
+        probe = _geometry_accounting(shapes, *blocks, dtype, dtype, "dense")
+        assert _dense_fits(shapes) == (probe.blocks_live == probe.blocks_total), shapes
 
 
 # one launch a case, on a card of H100_SMS multiprocessors: (T, K, N) of
