@@ -37,11 +37,13 @@ check:
    prefill cell's main path calls them, at its widths
    (``lfm2_layer_check``): one routed MoE layer's gate‖up and down calls
    over 64 expert tenants (rows routed on the card, four experts empty,
-   most tenants past the launch's 24 tensor maps and so on the staged
-   feed) and the output head's (65,536 x 2,048) @ (2,048 x 4) call, dense
-   and compact, each one launch of its grid and held tenant by tenant
-   against a float32 matmul of the same bf16 operands (< 1e-4) and, on
-   integer-valued operands, bit for bit; then the layer's two expert calls
+   every tenant fed by TMA through two tensor maps shared by all, as the
+   launcher's feed counters show) and the output head's (65,536 x 2,048) @
+   (2,048 x 4) call, dense and compact, each one launch of its grid and
+   held tenant by tenant against a float32 matmul of the same bf16
+   operands (< 1e-4) and, on integer-valued operands, bit for bit; the
+   feed probe (12 experts' calls with their operands on tensor maps and
+   staged, timed in turns); then the layer's two expert calls
    with the epilogue (SiLU·up and the gate-weighted rows in bfloat16, each
    into one buffer) and its combine, timed beside the plain composition
    (f32 outputs, concatenated, cast, weighted and summed by PyTorch).
@@ -222,6 +224,7 @@ one host.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -262,10 +265,11 @@ KERNEL_FILE = "src/repro_torch/kernels/csrc/partitioned_matmul.cu"
 # round, hidden size, expert width, experts, experts a token, the drawn
 # expert bias's spread; the output head's rows (the vocabulary) and columns
 # (the prompts); experts left with no rows; and the launch's tensor maps
+# (MAX_MAPS, partitioned_matmul.cu, held against the built library)
 LFM2_LAYER = (16_384, 2048, 1536, 64, 4, 0.02)
 LFM2_HEAD = (65_536, 4)
 LFM2_EMPTY = (5, 17, 40, 63)
-TENSOR_MAPS = 24  # MAX_MAPS, partitioned_matmul.cu
+TENSOR_MAPS = 24
 PAPER_WORKLOADS = ("heavy", "light")
 PAPER_POLICIES = [
     "best_fit",
@@ -716,36 +720,85 @@ def lfm2_calls(counts: list[int]) -> dict:
     }
 
 
-def mapped_tenants(table) -> int:
-    """Live tenants whose x and w both get a tensor map where every operand
-    allows one: the launcher encodes them segment by segment in launch
-    order, x then w, until ``TENSOR_MAPS`` are used (``encode_maps``)."""
-    seen, both, n = set(), 0, 0
-    for sg in table.segments:
-        if n >= TENSOR_MAPS:
-            break
-        if table.tenants[sg.tenant].rows <= 0:
-            continue
-        x = sg.tenant not in seen
-        seen.add(sg.tenant)
-        n += x
-        if n < TENSOR_MAPS:
-            n += 1
-            both += x
-    return both
+def mapped_tenants(K, table, bufs) -> int:
+    """Live tenants of a bfloat16 launch of ``table`` over the tensors
+    ``bufs`` whose x and every w are read through a tensor map, of their
+    own or shared, as the launcher decides (``operand_feeds``)."""
+    feeds = K.operand_feeds(table, bufs)
+    staged = {i for kind, i, _, feed in feeds if kind == "x" and feed == "staged"}
+    staged |= {
+        table.segments[i].tenant
+        for kind, i, _, feed in feeds
+        if kind == "w" and feed == "staged"
+    }
+    return len({i for kind, i, _, _ in feeds if kind == "x"} - staged)
+
+
+def lfm2_feed_probe(torch, K, counts: list[int]) -> dict:
+    """The feed's own cost at the LFM2 expert calls' widths: the gate‖up
+    and down calls (compact, f32 outputs) over the first ``TENSOR_MAPS /
+    2`` routed experts, each x a view of one row buffer and each w a view
+    of one stack, timed in turns twice: ``*_mapped``, the experts first in
+    the launch, so that their operands are encoded before any other; and
+    ``*_staged``, the same experts behind as many one-row, 64-column decoy
+    tenants of the same depth, each operand a buffer of its own, whose own
+    maps use up ``TENSOR_MAPS`` first, so that the experts' operands are
+    staged.  The decoys add one narrow tile each to either call.  CUDA-event
+    ms a call and the experts' TFLOP/s."""
+    _, d, f, _, _, _ = LFM2_LAYER
+    n = TENSOR_MAPS // 2
+    picked = [t for t in counts if t > 0][:n]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    times, out = {}, {"rows": picked}
+    for name, k, cols in (("gate_up", d, 2 * f), ("down", f, d)):
+        xs = list(draw(sum(picked), k).split(picked))
+        ws = list(draw(n, k, cols).unbind(0))
+        dx = [draw(1, k) for _ in range(n)]
+        dw = [draw(k, 64) for _ in range(n)]
+        ms = time_in_turns(
+            torch,
+            {
+                f"{name}_mapped": lambda: K.fused_tenant_gemm(
+                    xs + dx, ws + dw, grid_mode="compact"
+                ),
+                f"{name}_staged": lambda: K.fused_tenant_gemm(
+                    dx + xs, dw + ws, grid_mode="compact"
+                ),
+            },
+        )
+        flops = 2 * sum(picked) * k * cols
+        for key, v in ms.items():
+            times[key] = v
+            out[f"{key}_tflops"] = flops / v / 1e9
+        out[f"{name}_staged_over_mapped"] = ms[f"{name}_staged"] / ms[f"{name}_mapped"]
+        del xs, ws, dx, dw
+    out["ms"] = times
+    log(f"lfm2 feed probe: {json.dumps(out)}")
+    return out
 
 
 def lfm2_layer_check(torch, K) -> dict:
     """The kernels as the LFM2 cell's main path calls them, at its widths:
     one routed MoE layer's gate‖up and down calls over 64 expert tenants
-    (rows routed on the card, some experts empty, most tenants past the
-    launch's tensor maps and on the staged feed), each x a view of one
-    sorted row buffer and each w a view of an expert stack, and the output
-    head's (65,536 x 2,048) @ (2,048 x 4) call; each in dense and compact
-    mode.  Every call is one launch of its table's grid; every tenant's
-    output is held against a float32 matmul of the same bf16 operands
-    (max relative error < MAX_REL_ERR) and, on integer-valued operands,
-    bit for bit.  Returns the calls' shapes and CUDA-event ms a call."""
+    (rows routed on the card, some experts empty), each x a view of one
+    sorted row buffer and each w a view of an expert stack, so that two
+    shared tensor maps feed every tenant, and the output head's (65,536 x
+    2,048) @ (2,048 x 4) call (its w staged: 8-byte rows); each in dense
+    and compact mode.  Every call is one launch of its table's grid, whose
+    operands the launcher counts by feed as ``operand_feeds`` predicts;
+    every tenant's output is held against a float32 matmul of the same
+    bf16 operands (max relative error < MAX_REL_ERR) and, on
+    integer-valued operands, bit for bit.  Then the feed probe
+    (``lfm2_feed_probe``) and the epilogue's calls.  Returns the calls'
+    shapes, feeds and CUDA-event ms a call."""
+    from repro_torch.kernels.partitioned_matmul import _layout
+
+    check(_layout()["max_maps"] == TENSOR_MAPS,
+          f"the library holds {_layout()['max_maps']} tensor maps a launch")
     counts = lfm2_counts(torch, "cuda")
     calls = lfm2_calls(counts)
     sms = K.sm_count(0)
@@ -787,6 +840,11 @@ def lfm2_layer_check(torch, K) -> dict:
                     launches == 1 and ctas == table.grid,
                     f"{what}: {launches} launches, {ctas} tiles, grid {table.grid}",
                 )
+                fed = {k: after["feed"][k] - before["feed"][k] for k in after["feed"]}
+                want = collections.Counter(
+                    f for _, _, _, f in K.operand_feeds(table, (*xs, *ws))
+                )
+                check(fed == {k: want[k] for k in fed}, f"{what}: feeds {fed}")
                 for i, (x, w, o) in enumerate(zip(xs, ws, got)):
                     ref = x.float() @ w.float()
                     check(o.shape == ref.shape, f"{what} tenant {i}: {tuple(o.shape)}")
@@ -795,8 +853,8 @@ def lfm2_layer_check(torch, K) -> dict:
                     elif ref.numel():
                         err = (o - ref).abs().max() / (ref.abs().max() + 1e-9)
                         check(err.item() < MAX_REL_ERR, f"{what} tenant {i}: {err}")
-                if name != "head":
-                    out[f"{name}_{mode}_mapped"] = mapped_tenants(table)
+                out[f"{name}_{mode}_feed"] = fed
+                out[f"{name}_{mode}_mapped"] = mapped_tenants(K, table, (*xs, *ws))
                 del got
             if not integer:
                 times |= time_in_turns(
@@ -809,6 +867,7 @@ def lfm2_layer_check(torch, K) -> dict:
                     },
                 )
             del xs, ws
+    out["probe"] = lfm2_feed_probe(torch, K, counts)
     times |= lfm2_epilogue_check(torch, K, counts)
     out["ms"] = times
     log(f"lfm2 layer: {json.dumps(out)}")
@@ -887,13 +946,18 @@ def lfm2_epilogue_check(torch, K, counts: list[int]) -> dict:
         return (by_token.view(T, k, d).float() * gates[..., None]).sum(1).to(
             torch.bfloat16)
 
+    fed = {}
     for name, call in (("gate_up", gate_up_epilogue), ("down", down_epilogue)):
-        before = K.launch_stats()["launches"]
+        before = K.launch_stats()
         call()
-        after = K.launch_stats()["launches"]
-        check(after["compact"] == before["compact"] + 1
-              and after["dense"] == before["dense"],
+        after = K.launch_stats()
+        check(after["launches"]["compact"] == before["launches"]["compact"] + 1
+              and after["launches"]["dense"] == before["launches"]["dense"],
               f"lfm2 {name} epilogue: not one compact launch")
+        fed[name] = {k: after["feed"][k] - before["feed"][k] for k in after["feed"]}
+        # x one buffer's split, w one stack's unbind: two shared maps
+        check(fed[name]["staged"] == 0 and fed[name]["own_map"] == 0,
+              f"lfm2 {name} epilogue: feeds {fed[name]}")
     got, want = layer_epilogue(), layer_plain()
     err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
     check(err < 2**-6, f"lfm2 layer epilogue against the plain composition: {err}")
@@ -916,7 +980,8 @@ def lfm2_epilogue_check(torch, K, counts: list[int]) -> dict:
             "layer_plain": layer_plain,
         },
     )
-    log(f"lfm2 epilogue: rel err {err:.3e}, SiLU·up {gap:.3e}, ms {json.dumps(times)}")
+    log(f"lfm2 epilogue: rel err {err:.3e}, SiLU·up {gap:.3e}, feeds {json.dumps(fed)}, "
+        f"ms {json.dumps(times)}")
     return times
 
 

@@ -36,6 +36,8 @@ NVCC_FLAGS = (
 
 # seconds the last build took (0.0 when the library was already built)
 last_build_seconds = 0.0
+# the library once ``load`` has bound it in this process, else None
+loaded = None
 
 
 def _nvcc() -> str:
@@ -57,7 +59,7 @@ def library_path() -> Path:
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernels' library, compiled on the first call of the process."""
-    global last_build_seconds
+    global last_build_seconds, loaded
     so = library_path()
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
@@ -86,10 +88,13 @@ def load() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pm_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.pm_layout.restype = i32
-    lib.pm_launch.argtypes = [i32, i32, ptr, i32, ptr]
+    lib.pm_launch.argtypes = [i32, i32, ptr, i32, ptr, ptr]
     lib.pm_launch.restype = i32
-    lib.pm_launch_epilogue.argtypes = [ptr, i32, ptr, ptr]
+    lib.pm_launch_epilogue.argtypes = [ptr, i32, ptr, ptr, ptr]
     lib.pm_launch_epilogue.restype = i32
+    lib.pm_feed_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong), i32]
+    lib.pm_feed_counts.restype = i32
+    loaded = lib
     return lib
 
 
@@ -113,6 +118,7 @@ LAYOUT_FIELDS = (
     "smem_bfloat16",
     "k_slice_float32",
     "k_slice_bfloat16",
+    "max_maps",
 )
 
 

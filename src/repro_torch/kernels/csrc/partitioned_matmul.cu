@@ -48,12 +48,25 @@
 //     into the next tile's slices while the consumers store a tile.
 //     Feeds: where an operand's origin and row pitch are 16-byte aligned,
 //     one producer thread loads its slices by TMA, from a tensor map the
-//     launcher encodes (zero past the live extents); else, the staged feed:
-//     the aligned 16-byte chunks that cover each row are copied by
+//     launcher encodes (zero past the map's extents); else, the staged
+//     feed: the aligned 16-byte chunks that cover each row are copied by
 //     cp.async, and once they are in, each consumer thread funnel-shifts a
 //     row into place, masks it and fences it for wgmma's async proxy; the
 //     two consumer warpgroups meet on a named barrier before they multiply,
-//     so the producer only issues copies.
+//     so the producer only issues copies.  Operands that are row-views of
+//     one storage, with one row pitch, one live width and one column
+//     offset in a row (the experts' x as splits of one sorted row buffer,
+//     their w as one stack's unbind), share one map, which spans the rows
+//     from the first one's origin to the last one's end; each reads it from
+//     its own origin row (Maps).  So a box of a shared x past a tenant's
+//     live rows brings in the next operand's rows, not zeros: no row of the
+//     sums depends on another row of x, and the stores write only rows
+//     below the tenant's live rows (write_tile, write_bf16), so those rows'
+//     sums are never stored.  A w shares a map only where its depth is a
+//     whole number of K slices, so that no box reads past its depth, where
+//     the next operand's rows lie: past the depth w must be zero (0 x Inf is
+//     NaN).  The bytes that reach shared memory for the live rows are the
+//     staged feed's, in the same swizzle.
 //     Products of bf16 values are exact in f32.
 // Writes.  Every output byte is written at most once, and only bytes of the
 // caller's output: a live tile writes its sums (zeros in its rows past the
@@ -75,6 +88,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -497,11 +511,15 @@ constexpr int MAX_MAPS = 24;
 
 // The tensor maps (TMA descriptors) of one bfloat16 launch, encoded by the
 // launcher from the table: x_map[i] (w_map[i]) names tenant i's x (segment
-// i's w), -1 where the operand has none (its origin or row pitch is off 16
-// bytes, or the launch has used MAX_MAPS) and is staged instead.
+// i's w) map, -1 where the operand has none (its origin or row pitch is off
+// 16 bytes, or the launch has used MAX_MAPS) and is staged instead; x_row[i]
+// (w_row[i]) is the map's row at the operand's origin: 0 in a map of its
+// own, its place in a shared one.
 struct Maps {
   signed char x_map[MAX_TENANTS];
   signed char w_map[MAX_SEGMENTS];
+  int x_row[MAX_TENANTS];
+  int w_row[MAX_SEGMENTS];
   CUtensorMap maps[MAX_MAPS];
 };
 
@@ -1160,7 +1178,9 @@ __device__ __forceinline__ void run_ring(const Params& p, const Maps& m,
     };
     for (int b = blockIdx.x; b < live_tiles; b += gridDim.x) {
       const WideTile w = wide_tile(walk, n_segments, live_tiles, DENSE, b);
-      const int xm = m.x_map[p.segments[w.seg].tenant], wm = m.w_map[w.seg];
+      const int tn = p.segments[w.seg].tenant;
+      const int xm = m.x_map[tn], wm = m.w_map[w.seg];
+      const int xr = m.x_row[tn], wr = m.w_row[w.seg];
       const Feed f = feed<EPI>(p, m, w);
       // the staged operands' chunks in slices of full depth
       Chunks cx, cw;
@@ -1176,11 +1196,11 @@ __device__ __forceinline__ void run_ring(const Params& p, const Maps& m,
           if (!f.sx || !f.sw)
             bar_expect(full, (f.sx ? 0 : X_BYTES) +
                                  (f.sw ? 0 : f.bn / 64 * W_BLOCK));
-          if (!f.sx) tma_load(sx, &m.maps[xm], full, k0, w.row0);
+          if (!f.sx) tma_load(sx, &m.maps[xm], full, k0, xr + w.row0);
           if (!f.sw)
             for (int c = 0; c < f.bn; c += 64)
               tma_load(sw + c / 64 * W_BLOCK, &m.maps[wm], full,
-                       w.col0 + (f.glu ? c / 64 * f.step : c), k0);
+                       w.col0 + (f.glu ? c / 64 * f.step : c), wr + k0);
         }
         const bool whole = f.depth - k0 >= 64;
         if (f.sx) {
@@ -1392,38 +1412,119 @@ bool encode(CUtensorMap* m, const char* g, int cols, int rows, int ld,
   return true;
 }
 
-// A map for each live tenant's x and each live segment's w that allows one,
-// in launch order, until MAX_MAPS are used.
-void encode_maps(const Params& p, Maps& m) {
+// Live operands of the bfloat16 launches so far, by feed: a tensor map of
+// their own, a map shared with other operands, staged (pm_feed_counts).
+std::atomic<long long> feed_counts[3];
+
+// An operand a tensor map may serve: its origin g, in the storage that
+// starts at `store`; `cols` live values a row, row pitch ld values, boxes
+// of `box` rows; `alone` where it shares no map.  Where it joins a group:
+// its first member (`group`), whose lo and hi are the group's first origin
+// and its last operand's end (the row past its last), `count` its members.
+struct Span {
+  const char* store;
+  const char* g;
+  int cols, ld, box;
+  bool alone;
+  signed char* map;
+  int* row;
+  int group, count;
+  const char* lo;
+  const char* hi;
+};
+
+// A map for each live tenant's x and each live segment's w that allows one
+// (a 16-byte aligned origin and row pitch), in launch order, until MAX_MAPS
+// are used.  Operands share one where they lie in one storage (stores[b]:
+// where buffer b's storage starts; null: each operand alone), with one row
+// pitch, one live width, one column offset in a row and one box, so that
+// their origins lie whole rows apart: the map spans the rows from the
+// group's first origin to its last operand's end, and each reads it from
+// its own row.  x past a tenant's live rows then holds the next operand's
+// rows (the stores mask them), so w shares only at a depth of whole K
+// slices, where no box reads past it.  A group of one is encoded as each
+// operand's map always was.
+void encode_maps(const Params& p, const long long* stores, Maps& m) {
   std::memset(m.x_map, -1, sizeof m.x_map);
   std::memset(m.w_map, -1, sizeof m.w_map);
-  bool tried[MAX_TENANTS] = {};
+  std::memset(m.x_row, 0, sizeof m.x_row);
+  std::memset(m.w_row, 0, sizeof m.w_row);
+  Span spans[MAX_TENANTS + MAX_SEGMENTS];
   int n = 0;
-  for (int i = 0; i < p.n_segments && n < MAX_MAPS; ++i) {
+  auto add = [&](int buf, long long off, int cols, int rows, int ld, int box,
+                 bool alone, signed char* map, int* row) {
+    const char* g = static_cast<const char*>(p.bufs[buf]) + 2 * off;
+    const char* store = stores ? reinterpret_cast<const char*>(stores[buf]) : g;
+    spans[n++] = Span{store, g, cols, ld, box, alone || !stores,
+                      map, row, -1, 0, g, g + 2ll * ld * rows};
+  };
+  bool seen[MAX_TENANTS] = {};
+  for (int i = 0; i < p.n_segments; ++i) {
     const Segment& sg = p.segments[i];
     const Tenant& tn = p.tenants[sg.tenant];
     if (tn.rows <= 0) continue;
-    if (!tried[sg.tenant]) {
-      tried[sg.tenant] = true;
-      const char* x = static_cast<const char*>(p.bufs[tn.x]) + 2 * tn.x_off;
-      if (encode(&m.maps[n], x, tn.depth, tn.rows, tn.ldx, WIDE))
-        m.x_map[sg.tenant] = static_cast<signed char>(n++);
+    if (!seen[sg.tenant]) {
+      seen[sg.tenant] = true;
+      add(tn.x, tn.x_off, tn.depth, tn.rows, tn.ldx, WIDE, false,
+          &m.x_map[sg.tenant], &m.x_row[sg.tenant]);
     }
-    const char* w = static_cast<const char*>(p.bufs[sg.w]) + 2 * sg.w_off;
     const int w_cols = sg.shape & 4 ? 2 * sg.cols : sg.cols;  // gate, up
-    if (n < MAX_MAPS && encode(&m.maps[n], w, w_cols, tn.depth, sg.ldw, 64))
-      m.w_map[i] = static_cast<signed char>(n++);
+    add(sg.w, sg.w_off, w_cols, tn.depth, sg.ldw, 64, tn.depth % 64 != 0,
+        &m.w_map[i], &m.w_row[i]);
   }
+  for (int i = 0; i < n; ++i) {
+    Span& a = spans[i];
+    if ((reinterpret_cast<uintptr_t>(a.g) & 15) || (a.ld * 2) % 16) continue;
+    const long long pitch = 2ll * a.ld;
+    const long long col = (a.g - a.store) % pitch;
+    int j = 0;
+    for (; !a.alone && j < i; ++j) {
+      const Span& b = spans[j];
+      if (b.group == j && !b.alone && b.store == a.store && b.ld == a.ld &&
+          b.cols == a.cols && b.box == a.box && (b.g - b.store) % pitch == col)
+        break;
+    }
+    Span& lead = spans[a.alone ? i : j];
+    a.group = static_cast<int>(&lead - spans);
+    lead.count += 1;
+    if (a.g < lead.lo) lead.lo = a.g;
+    if (a.hi > lead.hi) lead.hi = a.hi;
+  }
+  int used = 0;
+  for (int i = 0; i < n && used < MAX_MAPS; ++i) {
+    const Span& a = spans[i];
+    if (a.group != i) continue;
+    const long long rows = (a.hi - a.lo) / (2ll * a.ld);
+    if (rows + WIDE < (1ll << 31) &&
+        encode(&m.maps[used], a.lo, a.cols, static_cast<int>(rows), a.ld, a.box))
+      *a.map = static_cast<signed char>(used++);
+  }
+  long long fed[3] = {0, 0, 0};  // own map, shared map, staged
+  for (int i = 0; i < n; ++i) {
+    const Span& a = spans[i];
+    const Span* lead = a.group < 0 ? nullptr : &spans[a.group];
+    if (!lead || *lead->map < 0) {
+      ++fed[2];
+      continue;
+    }
+    *a.map = *lead->map;
+    *a.row = static_cast<int>((a.g - lead->lo) / (2ll * a.ld));
+    ++fed[lead->count > 1];
+  }
+  for (int k = 0; k < 3; ++k)
+    feed_counts[k].fetch_add(fed[k], std::memory_order_relaxed);
 }
 
 constexpr int MAX_DEVICES = 64;
 
 // Launches the bfloat16 kernels over `tiles` tiles: one persistent CTA an
-// SM at most; `epi`: the compact kernel with the epilogue, row scale
-// `scale`.  Their shared memory is set once a device; a device whose blocks
-// cannot have it is refused.
+// SM at most; `stores`: where each buffer's storage starts (encode_maps);
+// `epi`: the compact kernel with the epilogue, row scale `scale`.  Their
+// shared memory is set once a device; a device whose blocks cannot have it
+// is refused.
 int launch_ring(bool dense, const Params& p, int tiles, cudaStream_t st,
-                bool epi = false, const float* scale = nullptr) {
+                const long long* stores, bool epi = false,
+                const float* scale = nullptr) {
   static int sms[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1451,7 +1552,7 @@ int launch_ring(bool dense, const Params& p, int tiles, cudaStream_t st,
     sms[dev] = n;
   }
   Maps m;
-  encode_maps(p, m);
+  encode_maps(p, stores, m);
   const int grid = tiles < sms[dev] ? tiles : sms[dev];
   if (epi)
     epi_k<<<grid, Cfg<__nv_bfloat16>::THREADS, ring_bytes(), st>>>(p, m,
@@ -1488,30 +1589,43 @@ int pm_layout(int* v) {
   v[16] = ring_bytes();
   v[17] = Cfg<float>::BK;
   v[18] = Cfg<__nv_bfloat16>::BK;
+  v[19] = MAX_MAPS;
   return 0;
 }
 
 // params: sizeof(Params) bytes laid out as struct Params; tiles: the
-// table's tiles.  Returns cudaGetLastError() after the launch (0 =
+// table's tiles; stores (bfloat16): where each of the table's buffers'
+// storage starts, so that operands of one storage may share a tensor map
+// (null: none does).  Returns cudaGetLastError() after the launch (0 =
 // success).
 int pm_launch(int dense, int bf16, const void* params, int tiles,
-              void* stream) {
+              void* stream, const long long* stores) {
   Params p;
   std::memcpy(&p, params, sizeof(Params));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_ring(dense != 0, p, tiles, st)
+  return bf16 ? launch_ring(dense != 0, p, tiles, st, stores)
               : launch<float>(dense != 0, p, tiles, st);
 }
 
-// The compact bfloat16 kernel with the epilogue: params and tiles as for
-// pm_launch, the table's outputs bfloat16; scale: a float per row of the
-// output buffer, or null.
+// The compact bfloat16 kernel with the epilogue: params, tiles and stores
+// as for pm_launch, the table's outputs bfloat16; scale: a float per row of
+// the output buffer, or null.
 int pm_launch_epilogue(const void* params, int tiles, const float* scale,
-                       void* stream) {
+                       void* stream, const long long* stores) {
   Params p;
   std::memcpy(&p, params, sizeof(Params));
-  return launch_ring(false, p, tiles, static_cast<cudaStream_t>(stream), true,
-                     scale);
+  return launch_ring(false, p, tiles, static_cast<cudaStream_t>(stream),
+                     stores, true, scale);
+}
+
+// The live operands of the bfloat16 launches since the library was loaded
+// or last reset, by feed: v[0] read through a tensor map of their own, v[1]
+// through one shared with other operands, v[2] staged.  reset: zero them
+// after the read.
+int pm_feed_counts(long long* v, int reset) {
+  for (int k = 0; k < 3; ++k)
+    v[k] = reset ? feed_counts[k].exchange(0) : feed_counts[k].load();
+  return 0;
 }
 
 }  // extern "C"

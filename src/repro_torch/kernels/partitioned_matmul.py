@@ -286,6 +286,7 @@ K_SLICES = (16, 64)
 ZERO_ROWS = 256
 MAX_TENANTS = 64
 MAX_SEGMENTS = 256
+MAX_MAPS = 24  # the tensor maps one bfloat16 launch holds
 
 
 def tile_shape(
@@ -594,6 +595,7 @@ def _layout() -> dict[str, int]:
         "zero_rows": ZERO_ROWS,
         "k_slice_float32": K_SLICES[0],
         "k_slice_bfloat16": K_SLICES[1],
+        "max_maps": MAX_MAPS,
     }
     bad = {k: (lay[k], v) for k, v in want.items() if lay[k] != v}
     if bad:
@@ -609,6 +611,55 @@ def _pack(table: LaunchTable, bufs) -> np.ndarray:
         blob, _HEAD.size, *[b.data_ptr() for b in bufs]
     )
     return blob
+
+
+def operand_feeds(table: LaunchTable, bufs) -> list[tuple[str, int, int, str]]:
+    """How a bfloat16 launch of ``table`` over the tensors ``bufs`` feeds
+    its live operands, as the launcher decides (``encode_maps`` in the CUDA
+    source, which counts the same in ``launch_stats()["feed"]``), its
+    driver's encoder taken to accept every map: ``(kind, index, map,
+    feed)`` for the x of each live tenant (``"x"``, its tenant) and the w
+    of each live segment (``"w"``, its segment), in launch order: the
+    launch's map it reads (-1: none) and its feed, one of
+    ``tracing.FEEDS``.
+
+    An operand whose origin or row pitch is off 16 bytes is staged.  The
+    others take tensor maps in order of first appearance, until
+    ``MAX_MAPS`` are used, the rest staged: one map for every operand of one
+    storage, row pitch, live width (x: its depth; w: its columns, gate and
+    up), box and column offset in a row (so that their origins lie whole
+    rows apart); a w of a depth that is not a whole number of K slices
+    takes a map of its own."""
+    spans = []  # (kind, index, buffer, element offset, live width, ld, box, alone)
+    seen = set()
+    for i, s in enumerate(table.segments):
+        t = table.tenants[s.tenant]
+        if t.rows <= 0:
+            continue
+        if s.tenant not in seen:
+            seen.add(s.tenant)
+            spans.append(("x", s.tenant, t.x, t.x_off, t.depth, t.ldx, TILE_ROWS[1],
+                          False))
+        cols = 2 * s.cols if s.glu else s.cols
+        spans.append(("w", i, s.w, s.w_off, cols, s.ldw, NARROW,
+                      t.depth % K_SLICES[1] != 0))
+    members: dict = {}  # the groups' operands, in order of first appearance
+    placed = []
+    for kind, index, buf, off, cols, ld, box, alone in spans:
+        g = bufs[buf].data_ptr() + 2 * off
+        store = bufs[buf].untyped_storage().data_ptr()
+        key = None
+        if not (g % 16 or (2 * ld) % 16):
+            key = (len(placed),) if alone else (store, ld, cols, box, (g - store) % (2 * ld))
+            members[key] = members.get(key, 0) + 1
+        placed.append((kind, index, key))
+    slots = {key: i for i, key in enumerate(list(members)[:MAX_MAPS])}
+    feeds = []
+    for kind, index, key in placed:
+        slot = slots.get(key, -1)
+        feed = "staged" if slot < 0 else "shared_map" if members[key] > 1 else "own_map"
+        feeds.append((kind, index, slot, feed))
+    return feeds
 
 
 # the current stream's handle without building a Stream object (the binding
@@ -630,6 +681,13 @@ def _launch(
             clock.finish()
         return
     blob = _pack(table, bufs)
+    # where each buffer's storage starts: the launcher lets operands of one
+    # storage share a tensor map
+    stores = (
+        _addresses(len(bufs)).pack(*[b.untyped_storage().data_ptr() for b in bufs])
+        if table.bf16
+        else None
+    )
     if clock is not None:
         clock.mark()
     if _raw_stream is not None:
@@ -638,10 +696,12 @@ def _launch(
         stream = torch.cuda.current_stream(device).cuda_stream
     lib = _build.load()
     if table.epilogue:
-        fn, args = lib.pm_launch_epilogue, (blob.ctypes.data, table.grid, scale, stream)
+        fn = lib.pm_launch_epilogue
+        args = (blob.ctypes.data, table.grid, scale, stream, stores)
     else:
         fn = lib.pm_launch
-        args = (int(table.dense), int(table.bf16), blob.ctypes.data, table.grid, stream)
+        args = (int(table.dense), int(table.bf16), blob.ctypes.data, table.grid,
+                stream, stores)
     if device.index == torch.cuda.current_device():
         err = fn(*args)
     else:

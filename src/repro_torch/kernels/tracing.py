@@ -14,6 +14,11 @@ marked as ``torch.profiler`` spans, only while tracing is armed
 * ``launch``: the device check, the stream handle, the library, the ctypes
   launch and the counters.
 
+The launcher in the kernels' library counts too: the live operands of
+its bfloat16 launches by the feed it gave them (:data:`FEEDS`), which
+``launch_stats`` reads from the library and ``reset_launch_stats`` zeroes
+there.
+
 Armed, each phase adds its host nanoseconds (``time.perf_counter_ns``) and
 one call to the store; while a profiler records, each phase is also a
 ``record_function`` span named ``repro_torch.gemm.<phase>``, on the clock of
@@ -25,10 +30,13 @@ nothing and records no phase.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import time
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import _build
 
 PHASES = ("prepare", "alloc", "table", "launch")
 SPAN_PREFIX = "repro_torch.gemm."
@@ -49,7 +57,9 @@ class TableCounts(NamedTuple):
     and those of the issued ones whose x or w row pitch is not a 16-byte
     multiple, which rules out 16-byte copies (the staged feed).  The table
     knows pitches, not addresses: a tile staged for an operand's origin, or
-    for want of a tensor map, is not counted there."""
+    for want of a tensor map, is not counted there; the launcher's own
+    choice for each operand is counted by feed (``launch_stats()["feed"]``,
+    :data:`FEEDS`)."""
 
     dense: int
     ctas: int
@@ -58,6 +68,24 @@ class TableCounts(NamedTuple):
     macs_issued: int
     macs_useful: int
     feed_staged_macs: int
+
+
+# the feeds the launcher counts the live operands of bfloat16 launches by
+# (x of each live tenant, w of each live segment): a tensor map of their
+# own, a map shared with other operands of one storage, the staged feed
+FEEDS = ("own_map", "shared_map", "staged")
+
+
+def _feed_counts(reset: bool = False) -> dict[str, int]:
+    """The launcher's counters by feed, from the library where this
+    process has loaded it (zeros where it has not), zeroed there after the
+    read where ``reset``."""
+    lib = _build.loaded
+    if lib is None:
+        return dict.fromkeys(FEEDS, 0)
+    v = (ctypes.c_longlong * len(FEEDS))()
+    lib.pm_feed_counts(v, int(reset))
+    return dict(zip(FEEDS, v))
 
 
 # a launch adds one to its table's own counter (``LaunchTable.launched``);
@@ -105,9 +133,10 @@ def launch_stats() -> dict:
     by kind; ``ctas``, ``mac_ctas``, ``fill_ctas`` (tiles);
     ``macs_issued``, ``macs_useful``, ``feed_staged_macs``
     (multiply-adds); ``table_builds``
-    (launch tables built, not found in their cache); and per phase the
-    armed calls (``phase_calls``) and their host nanoseconds
-    (``phase_ns``)."""
+    (launch tables built, not found in their cache); ``feed``, the live
+    operands of bfloat16 launches by the feed the launcher gave them
+    (:data:`FEEDS`); and per phase the armed calls (``phase_calls``) and
+    their host nanoseconds (``phase_ns``)."""
     s = _store
     s.fold()
     out = dict(zip(TableCounts._fields, s.totals))
@@ -116,6 +145,7 @@ def launch_stats() -> dict:
         "launches": {"dense": dense, "compact": s.launches - dense},
         **out,
         "table_builds": s.table_builds,
+        "feed": _feed_counts(),
         "phase_calls": dict(zip(PHASES, s.phase_calls)),
         "phase_ns": dict(zip(PHASES, s.phase_ns)),
     }
@@ -123,6 +153,7 @@ def launch_stats() -> dict:
 
 def reset_launch_stats() -> None:
     global _store
+    _feed_counts(reset=True)
     for _, launched, i in _store.watched:
         launched[i] = 0
     _store = _Store()

@@ -19,9 +19,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from collections import Counter
+
 from repro_torch.kernels import (
     fused_tenant_gemm,
     launch_counts,
+    launch_stats,
     ops,
     pad_operands,
     partitioned_matmul,
@@ -346,8 +349,9 @@ def _epilogue_calls(cuda, rows, d, f, **view):
 
 
 def test_the_epilogue_at_the_cell_s_expert_calls(cuda):
-    """64 ragged experts of ~1,024 rows at d = 2,048 and f = 1,536: the
-    first tenants TMA-fed, the rest past the launch's tensor maps staged."""
+    """64 ragged experts of ~1,024 rows at d = 2,048 and f = 1,536, each x
+    a split of one row buffer and each w a slice of one stack: two shared
+    tensor maps a call feed every tenant by TMA."""
     _epilogue_calls(cuda, _cell_rows(cuda), CELL_D, CELL_F)
 
 
@@ -384,6 +388,141 @@ def test_the_epilogue_refuses_dense_and_float32(cuda):
     with pytest.raises(ValueError, match="compact"):
         fused_tenant_gemm([xs[0].bfloat16()], [ws[0].bfloat16()],
                           epilogue="swiglu", grid_mode="dense")
+
+
+# ---------------------------------------------------------------------------
+# shared tensor maps: operands that are row-views of one storage read one map
+# ---------------------------------------------------------------------------
+
+
+def _fed(fn, xs, ws, **kw):
+    """``fn(xs, ws, **kw)`` and the launcher's counts of its operands by
+    feed (``launch_stats()["feed"]``), held against ``operand_feeds`` of
+    the launch's table."""
+    before = launch_stats()["feed"]
+    got = fn(xs, ws, **kw)
+    after = launch_stats()["feed"]
+    fed = {k: after[k] - before[k] for k in after}
+    shapes = tuple((x.shape[0], x.shape[1], w.shape[1]) for x, w in zip(xs, ws))
+    lds = tuple(x.stride(0) for x in xs), tuple(w.stride(0) for w in ws)
+    sms = pm.sm_count(xs[0].device.index)
+    if "out" in kw:
+        table = pm.epilogue_table(shapes, *lds, kw["out"].stride(0),
+                                  kw.get("epilogue") == "swiglu", sms)
+    else:
+        table = pm.tenant_table(shapes, *lds, kw["grid_mode"] == "dense", True, sms)
+    want = Counter(f for _, _, _, f in pm.operand_feeds(table, (*xs, *ws)))
+    assert fed == {k: want[k] for k in fed}
+    return got, fed
+
+
+def test_shared_maps_are_the_per_tenant_copies_bit_for_bit(cuda):
+    """The cell's two expert calls, x one sorted buffer's split and w one
+    stack's unbind (every operand through two shared maps), against the same
+    calls on per-tenant copies (a map each for the first 12 tenants, the
+    other live ones staged): the same bits."""
+    rows = _cell_rows(cuda)
+    live = sum(1 for r in rows if r)
+    S, d, f = sum(rows), CELL_D, CELL_F
+    gen = torch.Generator(device=cuda).manual_seed(45)
+
+    def draw(*shape, scale=1.0):
+        v = torch.randn(shape, generator=gen, device=cuda) * scale
+        return v.to(torch.bfloat16)
+
+    x, gate_up, down = draw(S, d), draw(CELL_E, d, 2 * f, scale=d**-0.5), draw(
+        CELL_E, f, d, scale=f**-0.5)
+    gates = torch.rand(S, generator=gen, device=cuda)
+    calls = {}
+    for name, xs, ws in (("shared", list(x.split(rows)), list(gate_up.unbind(0))),
+                         ("copies", [t.clone() for t in x.split(rows)],
+                          [w.clone() for w in gate_up.unbind(0)])):
+        act = torch.empty((S, f), dtype=torch.bfloat16, device=cuda)
+        _, up_fed = _fed(fused_tenant_gemm, xs, ws, epilogue="swiglu", out=act)
+        a = list(act.split(rows))
+        dws = list(down.unbind(0))
+        if name == "copies":
+            a, dws = [t.clone() for t in a], [w.clone() for w in dws]
+        y = torch.empty((S, d), dtype=torch.bfloat16, device=cuda)
+        _, down_fed = _fed(fused_tenant_gemm, a, dws, row_scale=gates, out=y)
+        calls[name] = act, y, up_fed, down_fed
+    shared, copies = calls["shared"], calls["copies"]
+    assert torch.equal(shared[0], copies[0]) and torch.equal(shared[1], copies[1])
+    assert torch.isfinite(shared[1].float()).all()
+    mapped = pm.MAX_MAPS
+    for fed in shared[2:]:
+        assert fed == {"own_map": 0, "shared_map": 2 * live, "staged": 0}
+    for fed in copies[2:]:
+        assert fed == {"own_map": mapped, "shared_map": 0, "staged": 2 * live - mapped}
+
+
+def _near(outs, xs, ws):
+    """Every output finite and within 1e-4 of a float32 matmul of the same
+    operands."""
+    for x, w, o in zip(xs, ws, outs):
+        ref = x.float() @ w.float()
+        assert torch.isfinite(o).all()
+        if ref.numel():
+            assert ((o - ref).abs().max() / ref.abs().max()).item() < 1e-4
+
+
+@pytest.mark.parametrize("grid_mode", ["dense", "compact"])
+def test_a_shared_x_past_a_tenant_s_rows_never_reaches_its_output(cuda, grid_mode):
+    """Tenants whose rows end mid-tile in one storage, the rows between and
+    after them no tenant's, holding NaN and Inf: their 128-row boxes read
+    those rows, whose sums are never stored."""
+    gen = torch.Generator(device=cuda).manual_seed(46)
+    K = 192
+    buf = torch.randn((700, K), generator=gen, device=cuda).to(torch.bfloat16)
+    buf[100:150] = float("nan")
+    buf[150:160, ::2] = float("inf")
+    buf[600:] = float("-inf")
+    xs = [buf[0:100], buf[160:300], buf[300:301], buf[400:600]]
+    ws = [torch.randn((K, n), generator=gen, device=cuda).to(torch.bfloat16)
+          for n in (64, 136, 56, 256)]
+    outs, fed = _fed(fused_tenant_gemm, xs, ws, grid_mode=grid_mode)
+    assert fed == {"own_map": 4, "shared_map": 4, "staged": 0}
+    _near(outs, xs, ws)
+
+
+def test_a_stacked_w_off_the_k_slice_keeps_a_map_of_its_own(cuda):
+    """Experts of depth 100 (not a whole number of 64-deep K slices) in one
+    stack, the neighbouring experts' first rows Inf: each w is read
+    through a map of its own, zero past its depth, so no 0 x Inf."""
+    gen = torch.Generator(device=cuda).manual_seed(47)
+    K, N = 100, 192
+    stack = torch.randn((4, K, N), generator=gen, device=cuda).to(torch.bfloat16)
+    stack[1, :8] = float("inf")
+    stack[3, :8] = float("-inf")
+    # x rows 104 values apart (208 bytes): TMA-fed, one shared map
+    x = torch.randn((300, K + 4), generator=gen, device=cuda).to(torch.bfloat16)
+    xs, ws = [x[:130, :K], x[130:, :K]], [stack[0], stack[2]]
+    for mode in ("dense", "compact"):
+        outs, fed = _fed(fused_tenant_gemm, xs, ws, grid_mode=mode)
+        assert fed == {"own_map": 2, "shared_map": 2, "staged": 0}
+        _near(outs, xs, ws)
+
+
+def test_a_launch_mixes_shared_own_and_staged_operands(cuda):
+    """Experts of one storage (shared maps), tenants with buffers of their
+    own (their own maps) and one tenant on a view 2 bytes off (staged), in
+    one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    K, N = 256, 192
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+    rows, stack = draw(500, K), draw(3, K, N)
+    off = draw(90 * K + 1)[1:].view(90, K)  # 2 bytes past a 16-byte boundary
+    xs = [*rows.split([200, 0, 300])[::2], draw(77, K), off, draw(64, K)]
+    ws = [stack[0], stack[2], draw(K, N), draw(K, N), stack[1]]
+    for mode in ("dense", "compact"):
+        outs, fed = _fed(fused_tenant_gemm, xs, ws, grid_mode=mode)
+        # x: the two splits share; the own-buffer ones map alone, the view
+        # 2 bytes off is staged; w: the three stack slices share
+        assert fed == {"own_map": 4, "shared_map": 5, "staged": 1}
+        _near(outs, xs, ws)
 
 
 # heavy-b128's first wave at batch 8 (table1-heavy, layer 0 of each tenant)

@@ -312,13 +312,29 @@ def test_chip_smoke_s_lfm2_layer_is_the_cell_s():
     assert cs.LFM2_HEAD == (cfg["vocab_size"], mix["prompts"])
 
 
+class _View:
+    """A bfloat16 view ``at`` bytes into the storage at ``base``, as the
+    launcher sees it: addresses only, nothing allocated."""
+
+    def __init__(self, base, at=0):
+        self.base, self.at = base, at
+
+    def data_ptr(self):
+        return self.base + self.at
+
+    def untyped_storage(self):
+        return _View(self.base)
+
+
 @pytest.mark.parametrize("dense", [False, True], ids=["compact", "dense"])
 @pytest.mark.parametrize("call", ["gate_up", "down"])
 def test_chip_smoke_s_lfm2_layer_has_empty_and_staged_experts(call, dense):
     """The card's check of the cell's expert calls: 64 tenants, the routed
-    rows of one layer with some experts empty, most tenants past the
-    launch's tensor maps."""
-    from repro_torch.kernels import tenant_table
+    rows of one layer with some experts empty.  Its operands, one row
+    buffer's split and one stack's unbind, reach every live tenant through
+    two shared tensor maps; per-tenant copies would leave all but the
+    first ``TENSOR_MAPS / 2`` live tenants on the staged feed."""
+    import repro_torch.kernels as K
 
     cs = _chip_smoke()
     counts = cs.lfm2_counts(torch, "cpu")
@@ -328,9 +344,15 @@ def test_chip_smoke_s_lfm2_layer_has_empty_and_staged_experts(call, dense):
     assert len(shapes) == 64 and shapes[0][1:] == ((2048, 3072) if call == "gate_up"
                                                    else (1536, 2048))
     lds = tuple(k for _, k, _ in shapes), tuple(n for _, _, n in shapes)
-    table = tenant_table(shapes, *lds, dense, True, 132)
+    table = K.tenant_table(shapes, *lds, dense, True, 132)
     assert len(table.tenants) == 64
-    assert 0 < cs.mapped_tenants(table) <= cs.TENSOR_MAPS // 2
+    starts = [sum(counts[:e]) for e in range(64)]
+    shared = [_View(1 << 40, 2 * k * r) for r, (_, k, _) in zip(starts, shapes)]
+    shared += [_View(1 << 41, 2 * k * n * e) for e, (_, k, n) in enumerate(shapes)]
+    copies = [_View((1 << 40) + (i << 32)) for i in range(128)]
+    live = 64 - len(cs.LFM2_EMPTY)
+    assert cs.mapped_tenants(K, table, shared) == live
+    assert cs.mapped_tenants(K, table, copies) == cs.TENSOR_MAPS // 2
 
 
 def test_the_registry_stays_the_jax_package_s():
