@@ -19,6 +19,16 @@ dropped.  The layer runs in four phases:
 * ``combine``: each token's slots gathered back in token order and summed
   in float32.
 
+A layer may also have a shared expert (``shared_gate_up`` (d, 2 f_s),
+``shared_down`` (f_s, d) in ``p``, as DeepSeek-V3 and GLM-4.7-Flash have
+one), a SwiGLU that every token takes, its output added unweighted to the
+routed sum in float32 before the layer's one rounding to bfloat16.  Its two
+calls (:func:`shared_expert`, one tenant each, through the same epilogue)
+do not wait on the routing, so the layer enqueues them after its count read
+has begun and before it yields: the card runs them while the counts travel
+to the host.  A layer without those parameters makes exactly the calls it
+made before shared experts were added.
+
 ``gemm`` is ``repro_torch.kernels.fused_tenant_gemm`` or anything with its
 call.  The layer passes it the epilogue's keywords (``epilogue``,
 ``row_scale``, ``out``) and uses the buffer as it is only where the
@@ -30,12 +40,15 @@ float32, itself, as a layer without the epilogue does.
 Counters (:func:`moe_stats`): layers run, tokens and token-slots routed,
 the sum over layers of the most rows one expert took, the experts left
 empty, the count reads, the expert calls used from the epilogue's buffer
-and those the layer had to concatenate or finish are always counted.
+and those the layer had to concatenate or finish, the shared expert's calls
+and rows are always counted.
 With tracing armed
 (``kernels.tracing.set_tracing``) each phase also adds its host
 nanoseconds, each layer its host nanoseconds from the router's launch to
 the last expert call's return and its per-expert row counts, and under a
-profiler each phase is a ``record_function`` span ``repro_torch.moe.<phase>``.
+profiler each phase is a ``record_function`` span ``repro_torch.moe.<phase>``
+and the shared expert's two calls the span ``repro_torch.moe.shared``
+(inside ``route``).
 """
 
 from __future__ import annotations
@@ -54,19 +67,21 @@ Params = dict[str, Any]
 PHASES = ("route", "dispatch", "experts", "combine")
 SPAN_PREFIX = "repro_torch.moe."
 _SPANS = tuple(SPAN_PREFIX + p for p in PHASES)
+SHARED_SPAN = SPAN_PREFIX + "shared"
 # added to the sum of a token's chosen scores before it divides them
 NORM_EPS = 1e-6
 
 
 class _Store:
     __slots__ = ("layers", "tokens", "slots", "max_rows", "empty_experts",
-                 "count_reads", "epilogue_calls", "copied_calls", "phase_ns",
-                 "armed_layers", "layer_ns", "routed")
+                 "count_reads", "epilogue_calls", "copied_calls", "shared_calls",
+                 "shared_rows", "phase_ns", "armed_layers", "layer_ns", "routed")
 
     def __init__(self) -> None:
         self.layers = self.tokens = self.slots = 0
         self.max_rows = self.empty_experts = self.count_reads = 0
         self.epilogue_calls = self.copied_calls = 0
+        self.shared_calls = self.shared_rows = 0
         self.phase_ns = [0] * len(PHASES)
         self.armed_layers = self.layer_ns = 0
         self.routed: list[tuple[int, ...]] = []
@@ -82,7 +97,9 @@ def moe_stats() -> dict:
     ``empty_experts`` (summed over layers), ``count_reads`` (host syncs),
     ``epilogue_calls`` (expert calls whose outputs came back as the rows of
     the layer's buffer, used with no copy), ``copied_calls`` (those the
-    layer concatenated or finished itself); armed only: ``phase_ns`` per
+    layer concatenated or finished itself; both count the shared expert's
+    calls too), ``shared_calls`` and ``shared_rows`` (the shared expert's
+    calls and rows, summed over layers); armed only: ``phase_ns`` per
     phase, ``armed_layers``, ``layer_ns`` (router launch to the last expert
     call's return, summed) and ``routed``
     (each armed layer's rows per expert, in order).  A layer run as steps
@@ -99,6 +116,8 @@ def moe_stats() -> dict:
         "count_reads": s.count_reads,
         "epilogue_calls": s.epilogue_calls,
         "copied_calls": s.copied_calls,
+        "shared_calls": s.shared_calls,
+        "shared_rows": s.shared_rows,
         "phase_ns": dict(zip(PHASES, s.phase_ns)),
         "armed_layers": s.armed_layers,
         "layer_ns": s.layer_ns,
@@ -233,6 +252,30 @@ def _finished(outs, buf: torch.Tensor, counts: list[int], finish) -> torch.Tenso
     return torch.cat(parts)
 
 
+def shared_expert(p: Params, x: torch.Tensor, gemm=fused_tenant_gemm) -> torch.Tensor:
+    """The shared expert's SwiGLU on every row of ``x`` (T, d) bfloat16:
+    gate‖up as one single-tenant call whose epilogue writes SiLU·up in
+    bfloat16, then down into a (T, d) bfloat16 buffer.  ``p``:
+    ``shared_gate_up`` (d, 2 f_s) with gate in the first f_s columns,
+    ``shared_down`` (f_s, d)."""
+    T, d = x.shape
+    f = p["shared_down"].shape[0]
+    act = x.new_empty((T, f))
+    act = _finished(
+        gemm([x], [p["shared_gate_up"]], epilogue="swiglu", out=act), act, [T],
+        lambda o, row: F.silu(o[:, :f].to(x.dtype)) * o[:, f:].to(x.dtype),
+    )
+    y = x.new_empty((T, d))
+    y = _finished(
+        gemm([act], [p["shared_down"]], out=y), y, [T],
+        lambda o, row: o.to(x.dtype),
+    )
+    s = _store
+    s.shared_calls += 2
+    s.shared_rows += T
+    return y
+
+
 def routed_experts(
     p: Params,
     x: torch.Tensor,
@@ -246,7 +289,9 @@ def routed_experts(
     (T, d) bfloat16 output and each token's (T, top_k) chosen experts.
 
     ``p``: ``router`` (d, E), ``expert_bias`` (E,) f32, ``gate_up``
-    (E, d, 2 f) with gate in the first f columns, ``down`` (E, f, d)."""
+    (E, d, 2 f) with gate in the first f columns, ``down`` (E, f, d); and
+    where the layer has a shared expert, ``shared_gate_up`` and
+    ``shared_down`` (:func:`shared_expert`)."""
     return run_steps(
         routed_experts_steps(p, x, top_k, norm=norm, scale=scale, gemm=gemm)
     )
@@ -265,7 +310,8 @@ def routed_experts_steps(
     expert counts are on their way to the host and the card has the
     layer's routing queued: a caller with other work to enqueue (another
     batch's layers) does it there, and the card runs it while this layer's
-    counts arrive and its launch tables are built."""
+    counts arrive and its launch tables are built.  A shared expert's
+    calls are enqueued before the yield, behind the count read."""
     clock = _Clock() if tracing.armed else None
     T, d = x.shape
     n_experts = p["router"].shape[1]
@@ -277,6 +323,10 @@ def routed_experts_steps(
     flat = experts.reshape(-1)
     counts = torch.zeros(n_experts, dtype=torch.int64, device=x.device)
     read = _CountRead(counts.index_add_(0, flat, torch.ones_like(flat)))
+    shared = None
+    if "shared_gate_up" in p:
+        with tracing.span(SHARED_SPAN):
+            shared = shared_expert(p, x, gemm)
     if clock is not None:
         clock.pause()
     yield
@@ -326,6 +376,8 @@ def routed_experts_steps(
     by_token = torch.empty_like(order)
     by_token[order] = torch.arange(n_slots, device=order.device)
     out = y.index_select(0, by_token).view(T, top_k, d).sum(1, dtype=torch.float32)
+    if shared is not None:
+        out += shared
     if clock is not None:
         clock.mark()
         s.armed_layers += 1
